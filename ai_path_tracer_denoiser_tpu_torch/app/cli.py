@@ -6,8 +6,9 @@
                (hidden state carried), write the frame
 
 Both run on ``--device cuda`` (the default) or ``--device cpu``; on the
-card the render goes through the megakernel and the denoiser's convs
-through the fused conv kernel.  The JAX package's other commands, and
+card the render goes through the megakernel (scenes with a mesh over 64
+faces: through the plain wavefront with the mesh BVH kernels) and the
+denoiser's convs through the fused conv kernel.  The JAX package's other commands, and
 ``interactive --serve`` / ``--parity-denoise``, are not ported yet
 (ROADMAP queue A).
 """
@@ -58,8 +59,10 @@ _FLAGS = ("stream_compaction", "ray_culling", "antialias", "denoise",
 def _render_options(args) -> RenderOptions:
     kwargs = {f: getattr(args, f) for f in _FLAGS
               if getattr(args, f, None) is not None}
-    if getattr(args, "rng", None):
-        kwargs["rng"] = args.rng
+    for name in ("rng", "mesh_octant_sort", "mesh_sort_cells",
+                 "mesh_kernel_lanes", "mesh_kernel_impl"):
+        if getattr(args, name, None) is not None:
+            kwargs[name] = getattr(args, name)
     return RenderOptions(**kwargs)
 
 
@@ -207,6 +210,22 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument(f"--no-{name}", dest=flag, action="store_false",
                             default=None)
         sp.add_argument("--rng", choices=("parity", "fast"), default=None)
+        sp.add_argument("--mesh-octant-sort", dest="mesh_octant_sort",
+                        action="store_true", default=None)
+        sp.add_argument("--no-mesh-octant-sort", dest="mesh_octant_sort",
+                        action="store_false", default=None)
+        sp.add_argument("--mesh-sort-cells", dest="mesh_sort_cells",
+                        type=int, default=None,
+                        help="with octant sort, origin-cell Morton major "
+                             "key over N^3 cells (0 = octant only)")
+        sp.add_argument("--mesh-kernel-lanes", type=int, default=None,
+                        help="the TPU kernels' rays per tile; accepted, no "
+                             "effect on the CUDA kernels")
+        sp.add_argument("--mesh-kernel-impl",
+                        choices=("auto", "v2", "v2p", "v2s", "v3", "binned"),
+                        default=None,
+                        help="BVH intersection for meshes over 65 faces "
+                             "(same image; auto routes by bin count)")
 
     sp = sub.add_parser("render", help="accumulate N spp and save an image")
     add_common(sp)

@@ -3,8 +3,7 @@
 Same three frozen dataclasses and the same field meanings.  Options
 whose code path is not ported yet (material sort, first-bounce cache,
 motion blur) are kept as fields and the renderer raises
-``NotImplementedError`` when one is switched on; the JAX package's mesh
-BVH knobs come with the mesh slice (ROADMAP queue A, item 9).
+``NotImplementedError`` when one is switched on.
 """
 from __future__ import annotations
 
@@ -24,6 +23,28 @@ class RenderOptions:
     cache_first_bounce: bool = False   # not yet ported (ROADMAP queue B)
     # Gate per-ray triangle loops on a ray/AABB test (pathtrace.cu:23, 258).
     ray_culling: bool = True
+    # Send a mesh that carries a cluster hierarchy (ops/bvh.py, built for
+    # meshes over 65 faces) through it instead of the O(faces) scan.
+    mesh_bvh: bool = True
+    # Carry the secondary bounces' rays sorted by direction octant (and
+    # origin cell, below) so that neighbouring rays descend the same nodes.
+    # A pure permutation: the image does not change.  Ignored by the binned
+    # pipeline, which packs rays itself.
+    mesh_octant_sort: bool = True
+    # The TPU kernels' rays per tile for secondary bounces, their
+    # descent-gating granule.  Kept for the JAX package's interface; the
+    # CUDA kernels gate per ray, so it has no effect.
+    mesh_kernel_lanes: int = 1024
+    # With mesh_octant_sort, also sort by an origin-cell Morton major key
+    # over mesh_sort_cells^3 cells of the batch's own origin bounds
+    # (negative: octant-major; 0 = octant only).
+    mesh_sort_cells: int = 8
+    # BVH intersection: "auto" = "binned" for meshes of 64 bins (of 256
+    # faces) or more, else "v2p"; "v2p"/"v2s" = per-ray traversal
+    # (render/mesh_kernel_v2p.py, one kernel serves both); "binned" = the
+    # pair pipeline (render/mesh_binned.py).  All give the dense scan's
+    # result.  "v2" and "v3" are not ported yet (ROADMAP queue B).
+    mesh_kernel_impl: str = "auto"
 
     # --- effects (pathtrace.cu:25-28) ---
     antialias: bool = True            # sub-pixel jitter, pathtrace.cu:168-173
@@ -69,6 +90,9 @@ class RenderOptions:
             raise ValueError(f"rng={self.rng!r}")
         if self.accum_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"accum_dtype={self.accum_dtype!r}")
+        if self.mesh_kernel_impl not in ("auto", "v2", "v2p", "v2s", "v3",
+                                         "binned"):
+            raise ValueError(f"mesh_kernel_impl={self.mesh_kernel_impl!r}")
         if self.backend not in ("auto", "xla", "pallas"):
             raise ValueError(f"backend={self.backend!r}")
         if self.pallas_geometry not in ("baked", "operand"):

@@ -1,0 +1,90 @@
+// Shared device code of the mesh kernels (mesh_bvh_v2p.cu,
+// mesh_binned_phase1.cu, mesh_binned_pair.cu): the slab test that gates a
+// hierarchy node and the one-sided Moller-Trumbore test, both written in
+// the operation order of their plain PyTorch versions
+// (render/mesh_kernel_v2p.py:_slab_live, ops/intersect.py:_triangle_t).
+// The sources are built with -fmad=false and without fast math, so every
+// operation rounds as the separate PyTorch kernels of the plain versions do.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace aptd {
+
+constexpr int kCluster = 32;            // faces per cluster
+constexpr int kFanout = 8;              // clusters per super, supers per hyper
+constexpr int kBin = kFanout * kCluster;  // faces per bin (one super)
+constexpr int kFaceRow = 19;            // v0 v1 v2 | n0 n1 n2 | material id
+constexpr int kBoundsRow = 8;           // lb3 ub3 0 0
+constexpr float kFltEps = 1.1920929e-07f;
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float x, float y, float z) {
+  V3 r;
+  r.x = x;
+  r.y = y;
+  r.z = z;
+  return r;
+}
+__device__ __forceinline__ V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
+__device__ __forceinline__ V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
+__device__ __forceinline__ V3 scale(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
+}
+__device__ __forceinline__ V3 normalized_safe(V3 a) {
+  float n2 = dot(a, a);
+  return scale(a, n2 > 0.0f ? rsqrtf(n2) : 1.0f);
+}
+
+// A ray against one AABB row: does it hit the box, and is the entry
+// closer than t_run?  The NaN rule is written out, because it decides the
+// result: a NaN plane distance (0 * inf: the origin on a box face with a
+// zero direction component) makes that axis unbounded, lo = -inf and
+// hi = +inf, where fminf/fmaxf alone would drop the NaN and keep the other
+// plane's distance.
+__device__ __forceinline__ bool slab_live(const float* row, V3 o, V3 inv, float t_run) {
+  const float os[3] = {o.x, o.y, o.z};
+  const float is[3] = {inv.x, inv.y, inv.z};
+  float tmin = -INFINITY, tmax = INFINITY;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float t1 = (row[a] - os[a]) * is[a];
+    float t2 = (row[a + 3] - os[a]) * is[a];
+    bool nan = (t1 != t1) || (t2 != t2);
+    float lo = nan ? -INFINITY : fminf(t1, t2);
+    float hi = nan ? INFINITY : fmaxf(t1, t2);
+    tmin = fmaxf(tmin, lo);
+    tmax = fminf(tmax, hi);
+  }
+  return (tmax >= tmin) && (tmax >= 0.0f) && (fmaxf(tmin, 0.0f) < t_run);
+}
+
+// glm one-sided Moller-Trumbore against face row `fr`: the hit distance, or
+// +inf on a miss or a hit at t <= 0; u and w are the barycentrics.
+__device__ __forceinline__ float triangle_t(const float* fr, V3 o, V3 d, float* u_out,
+                                            float* w_out) {
+  V3 v0 = v3(fr[0], fr[1], fr[2]), v1 = v3(fr[3], fr[4], fr[5]), v2 = v3(fr[6], fr[7], fr[8]);
+  V3 e1 = sub(v1, v0), e2 = sub(v2, v0);
+  V3 p = cross(d, e2);
+  float a = dot(e1, p);
+  bool front = a >= kFltEps;
+  float fi = 1.0f / a;
+  V3 s = sub(o, v0);
+  float u = fi * dot(s, p);
+  V3 q = cross(s, e1);
+  float w = fi * dot(d, q);
+  float t = fi * dot(e2, q);
+  bool hit = front && u >= 0.0f && u <= 1.0f && w >= 0.0f && u + w <= 1.0f && t >= 0.0f;
+  *u_out = u;
+  *w_out = w;
+  return (hit && t > 0.0f) ? t : INFINITY;
+}
+
+}  // namespace aptd

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,9 +19,9 @@ import torch
 SPHERE = 0
 CUBE = 1
 
-# Meshes of this many faces or more get a cluster BVH in the JAX package
-# (ops/bvh.py), which is not ported yet: the port loads them without a
-# hierarchy and refuses to render them (ROADMAP queue B, "ops/bvh.py").
+# Meshes past this face count get a cluster hierarchy at load time
+# (ops/bvh.py); up to it the dense scan is cheaper than traversal and the
+# megakernel takes the mesh (cuda_backend.MESH_BAKE_MAX_FACES).
 BVH_MIN_FACES = 65
 
 
@@ -79,9 +79,9 @@ class MeshData:
     """SoA triangle soup (reference ``Face``, sceneStructs.h:40-44).
 
     Faces are padded to a multiple; ``valid`` masks the padding and
-    ``num_faces`` is the true count.  ``needs_bvh``: the JAX package would
-    attach a cluster hierarchy to this mesh (num_faces >= BVH_MIN_FACES);
-    the port has none yet and its renderer refuses such meshes.
+    ``num_faces`` is the true count.  ``bvh`` is the cluster hierarchy
+    (ops/bvh.py:MeshBVH) of meshes over ``BVH_MIN_FACES`` faces, whose
+    faces are then stored in the hierarchy's Morton order.
     """
 
     vertices: torch.Tensor     # (F, 3, 3) f32 — world-space, pre-transformed
@@ -91,10 +91,13 @@ class MeshData:
     aabb_lb: torch.Tensor      # (3,) f32 (reference MeshBoundingBox)
     aabb_ub: torch.Tensor      # (3,) f32
     num_faces: int = 0
-    needs_bvh: bool = False
+    bvh: Optional[object] = None   # Optional[ops.bvh.MeshBVH]
 
     def to(self, device) -> "MeshData":
-        return _to(self, device)
+        moved = _to(self, device)
+        if self.bvh is not None:
+            moved = dataclasses.replace(moved, bvh=self.bvh.to(device))
+        return moved
 
 
 @dataclasses.dataclass
@@ -243,17 +246,28 @@ def pad_faces(vertices: np.ndarray, normals: np.ndarray, material_id: np.ndarray
 
 
 def make_mesh(vertices: np.ndarray, normals: np.ndarray, material_id: np.ndarray,
-              multiple: int = 128) -> MeshData:
+              multiple: int = 128, build_bvh: Optional[bool] = None) -> MeshData:
     """Build padded ``MeshData`` + AABB from world-space triangles.
 
     The AABB mirrors Scene::update_mesh_box (scene.h:28-44) with the upper
-    bound initialised to -inf (see the JAX package's make_mesh).  Faces
-    keep file order: no hierarchy is built, so no Morton reorder happens.
+    bound initialised to -inf (see the JAX package's make_mesh).
+
+    ``build_bvh``: attach the cluster hierarchy (default: iff the mesh has
+    more than ``BVH_MIN_FACES`` faces).  Building reorders the faces into
+    Morton order, which changes nothing but exact-tie winners.
     """
     num = int(vertices.shape[0])
     vertices = np.asarray(vertices, np.float32)
     normals = np.asarray(normals, np.float32)
     material_id = np.asarray(material_id, np.int32)
+    if build_bvh is None:
+        build_bvh = num > BVH_MIN_FACES
+    bvh = None
+    if build_bvh and num > 0:
+        from ..ops.bvh import build_mesh_bvh
+        bvh, order = build_mesh_bvh(vertices, normals, material_id)
+        vertices, normals, material_id = (
+            vertices[order], normals[order], material_id[order])
     if num:
         lb = vertices.reshape(-1, 3).min(axis=0)
         ub = vertices.reshape(-1, 3).max(axis=0)
@@ -265,7 +279,7 @@ def make_mesh(vertices: np.ndarray, normals: np.ndarray, material_id: np.ndarray
         vertices=_t(v, np.float32), normals=_t(n, np.float32),
         material_id=_t(m, np.int32), valid=_t(valid, np.bool_),
         aabb_lb=_t(lb, np.float32), aabb_ub=_t(ub, np.float32),
-        num_faces=num, needs_bvh=num >= BVH_MIN_FACES,
+        num_faces=num, bvh=bvh,
     )
 
 

@@ -45,9 +45,12 @@ class CudaKernel:
     """One csrc/ source, its shared library and its launch count."""
 
     def __init__(self, name: str, source: str, extra_flags: Sequence[str] = (),
-                 declare: Optional[Callable[[ctypes.CDLL], None]] = None):
+                 declare: Optional[Callable[[ctypes.CDLL], None]] = None,
+                 headers: Sequence[str] = ()):
         self.name = name
         self.source = os.path.join(CSRC_DIR, source)
+        # csrc/ headers the source includes: part of the library's hash
+        self.headers = tuple(os.path.join(CSRC_DIR, h) for h in headers)
         self.flags = BASE_FLAGS + tuple(extra_flags)
         self._declare = declare
         self._lib: Optional[ctypes.CDLL] = None
@@ -57,8 +60,9 @@ class CudaKernel:
 
     def library_path(self) -> str:
         h = hashlib.sha1()
-        with open(self.source, "rb") as f:
-            h.update(f.read())
+        for path in (self.source, *self.headers):
+            with open(path, "rb") as f:
+                h.update(f.read())
         h.update(" ".join(self.flags).encode())
         return os.path.join(BUILD_DIR, f"lib{self.name}-{h.hexdigest()[:12]}.so")
 

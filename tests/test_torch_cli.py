@@ -91,6 +91,40 @@ def test_unported_options_raise(flag, tmp_path):
               "--frames", "1", flag, "--out-dir", str(tmp_path)])
 
 
+def test_interactive_cli_renders_bvh_mesh(tmp_path):
+    """A mesh over 65 faces through the CLI on the CPU, with mesh flags."""
+    from ai_path_tracer_denoiser_tpu_torch.app.cli import main
+    records = main(["interactive", str(REPO / "scenes" / "cornell_mesh_icosphere.txt"),
+                    "--device", "cpu", "--res", str(RES), "--frames", "2",
+                    "--model", str(MODEL), "--out-dir", str(tmp_path),
+                    "--save-arrays", "--mesh-sort-cells", "4",
+                    "--mesh-kernel-impl", "v2p"])
+    assert [r["frame"] for r in records] == [0, 1]
+    for rec in records:
+        assert rec["finite"]
+        assert read_png(rec["path"]).shape == (RES, RES, 3)
+        base = rec["path"][:-len(".png")]
+        g = np.load(base + "_gbuffer.npy")
+        assert g.shape == (10, RES, RES) and np.isfinite(g).all()
+        assert (g[6] > 0).mean() > 0.5
+        assert np.isfinite(np.load(base + "_denoised.npy")).all()
+
+
+def test_cli_mesh_flags_reach_the_options():
+    from ai_path_tracer_denoiser_tpu_torch.app.cli import (_render_options,
+                                                           build_parser)
+    args = build_parser().parse_args(
+        ["render", "s.txt", "--no-mesh-octant-sort", "--mesh-sort-cells", "-8",
+         "--mesh-kernel-lanes", "128", "--mesh-kernel-impl", "binned"])
+    opts = _render_options(args)
+    assert (opts.mesh_octant_sort, opts.mesh_sort_cells, opts.mesh_kernel_lanes,
+            opts.mesh_kernel_impl, opts.mesh_bvh) == (False, -8, 128, "binned", True)
+    defaults = _render_options(build_parser().parse_args(["render", "s.txt"]))
+    assert (defaults.mesh_octant_sort, defaults.mesh_sort_cells,
+            defaults.mesh_kernel_lanes, defaults.mesh_kernel_impl) == (
+                True, 8, 1024, "auto")
+
+
 def test_cli_defaults_to_cuda():
     from ai_path_tracer_denoiser_tpu_torch.app.cli import build_parser
     args = build_parser().parse_args(["interactive", "scenes/cornell_box.txt"])

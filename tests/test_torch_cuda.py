@@ -15,7 +15,10 @@ the G-buffer agrees to isclose(rtol 1e-5, atol 1e-5) on >= 99.9% of
 pixels and the radiance to mean rel < 1e-3, PSNR >= 40 dB.  The conv
 kernel sums the products in another order than the plain float32 matmuls:
 float32 output within 1e-3 + 1e-3|p|, bfloat16 output within one bfloat16
-rounding step (1e-2 + 1.6e-2|p|).
+rounding step (1e-2 + 1.6e-2|p|).  The three mesh kernels (BVH traversal,
+bin subscription, pair intersection) are built with -fmad=false too and do
+their plain versions' operations in order: every output equal bit for bit
+(``torch.equal``, which takes -0.0 and +0.0 as equal).
 """
 import dataclasses
 import pathlib
@@ -26,8 +29,11 @@ import torch
 
 from ai_path_tracer_denoiser_tpu_torch.config import RenderOptions
 from ai_path_tracer_denoiser_tpu_torch.models import conv_kernel
+from ai_path_tracer_denoiser_tpu_torch.ops.bvh import build_mesh_bvh
+from ai_path_tracer_denoiser_tpu_torch.ops.vec3 import Vec3
 from ai_path_tracer_denoiser_tpu_torch.render import (assemble_gbuffer, cuda_backend,
-                                                      init_render_state)
+                                                      init_render_state, mesh_binned,
+                                                      mesh_kernel_v2p, render)
 from ai_path_tracer_denoiser_tpu_torch.scene import derive_camera, load_scene
 from ai_path_tracer_denoiser_tpu_torch.utils.device import resolve_device
 
@@ -67,6 +73,53 @@ def test_cpu_tensors_take_the_plain_versions():
     torch.testing.assert_close(
         y, conv_kernel.conv3x3_act_plain(x.bfloat16(), wt, b, 0.1, aff))
     assert (cuda_backend.KERNEL.launches, conv_kernel.KERNEL.launches) == before
+
+
+def _soup_bvh(n_faces, seed):
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-3, 3, (n_faces, 1, 3)).repeat(3, axis=1).astype(np.float32)
+    verts = base + rng.uniform(-0.4, 0.4, (n_faces, 3, 3)).astype(np.float32)
+    normals = rng.normal(size=(n_faces, 3, 3)).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    return build_mesh_bvh(verts, normals, rng.integers(0, 5, n_faces).astype(np.int32))[0]
+
+
+def _soup_rays(n, seed, bounds, device):
+    """Rays with a cull distance each (some -inf, some +inf), among them
+    0 * inf cases: zero direction components with the origin on a box face."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-6, 6, (3, n)).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    d[0, ::17] = 0.0
+    o[0, ::17] = float(bounds[0, 0])
+    d[1, 1::29] = 0.0
+    o[1, 1::29] = float(bounds[0, 4])
+    tc = rng.uniform(0.5, 25.0, n).astype(np.float32)
+    tc[::7] = -np.inf
+    tc[3::11] = np.inf
+    vec = lambda a: Vec3(*(torch.from_numpy(np.ascontiguousarray(c)).to(device) for c in a))
+    return vec(o), vec(d), torch.from_numpy(tc).to(device)
+
+
+def _all_equal(got, want):
+    flat = lambda r: (r[0], *r[1], *r[2], r[3])
+    return all(torch.equal(a, b) for a, b in zip(flat(got), flat(want)))
+
+
+def test_mesh_wrappers_take_the_plain_versions_on_cpu():
+    bvh = _soup_bvh(2048, 1)
+    o, d, tc = _soup_rays(1024, 2, bvh.super_bounds, "cpu")
+    kernels = (mesh_kernel_v2p.KERNEL, mesh_binned.PHASE1_KERNEL, mesh_binned.PAIR_KERNEL)
+    before = [k.launches for k in kernels]
+    got = mesh_kernel_v2p.mesh_intersect_bvh_v2p(bvh, o, d, tc)
+    assert _all_equal(got, mesh_kernel_v2p.mesh_intersect_bvh_v2p_plain(bvh, o, d, tc))
+    assert _all_equal(mesh_binned.mesh_intersect_binned(bvh, o, d, tc), got)
+    assert [k.launches for k in kernels] == before
+    with pytest.raises(ValueError, match="ray plane"):
+        mesh_kernel_v2p.ray_planes(o, d, tc[:-1])
+    with pytest.raises(ValueError, match="hierarchy table"):
+        mesh_kernel_v2p.table_ptr(bvh.faces_packed[:, :18], 19, tc.device)
 
 
 def test_entry_points_default_to_the_card():
@@ -127,3 +180,50 @@ def test_conv_kernel_matches_plain_on_card(cuda_device, h, w, c, co, affine):
                                    want.float().cpu().numpy(), rtol=rtol, atol=atol)
     with pytest.raises(ValueError):
         conv_kernel.conv3x3_act_chw(xs.float(), ws, bs, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_faces", [300, 5000])
+def test_mesh_kernels_match_plain_on_card(cuda_device, n_faces):
+    bvh = _soup_bvh(n_faces, n_faces).to(cuda_device)
+    o, d, tc = _soup_rays(8192, 3, bvh.super_bounds.cpu().numpy(), cuda_device)
+    kb = bvh.n_supers_real
+    launches = mesh_kernel_v2p.KERNEL.launches
+    got = mesh_kernel_v2p.mesh_intersect_bvh_v2p(bvh, o, d, tc)
+    torch.cuda.synchronize()
+    assert mesh_kernel_v2p.KERNEL.launches == launches + 1
+    want = mesh_kernel_v2p.mesh_intersect_bvh_v2p_plain(bvh, o, d, tc)
+    assert _all_equal(got, want) and torch.isfinite(want[0]).sum() > 0
+    for skip, c_out in ((0, min(12, kb)), (2, 3)):
+        launches = mesh_binned.PHASE1_KERNEL.launches
+        slots, counts = mesh_binned._phase1(o, d, tc, bvh.super_bounds, kb, skip, c_out)
+        torch.cuda.synchronize()
+        assert mesh_binned.PHASE1_KERNEL.launches == launches + 1
+        p_slots, p_counts = mesh_binned._phase1_plain(o, d, tc, bvh.super_bounds, kb,
+                                                      skip, c_out)
+        assert torch.equal(slots, p_slots) and torch.equal(counts, p_counts)
+    slots, _ = mesh_binned._phase1(o, d, tc, bvh.super_bounds, kb, 0, min(12, kb))
+    key = slots.T.reshape(-1)
+    perm = torch.sort(key, stable=True).indices
+    rep = lambda c: c[:, None].expand(-1, slots.shape[0]).reshape(-1)[perm].contiguous()
+    po, pd, key = Vec3(*map(rep, o)), Vec3(*map(rep, d)), key[perm].contiguous()
+    launches = mesh_binned.PAIR_KERNEL.launches
+    t_k, f_k = mesh_binned._pair_call(po, pd, key, bvh.faces_packed, kb)
+    torch.cuda.synchronize()
+    assert mesh_binned.PAIR_KERNEL.launches == launches + 1
+    t_p, f_p = mesh_binned._pair_plain(po, pd, key, bvh.faces_packed, kb)
+    assert torch.equal(t_k, t_p) and torch.equal(f_k, f_p) and (f_p >= 0).sum() > 0
+    for caps in (dict(lcap=8192, lcapb=8192), dict(lcap=64, lcapb=64)):
+        assert _all_equal(mesh_binned.mesh_intersect_binned(bvh, o, d, tc, **caps), want)
+
+
+@pytest.mark.cuda
+def test_mesh_scene_renders_through_the_kernels_on_card(cuda_device):
+    scene = _scene("cornell_mesh_torus.txt", cuda_device, depth=4)
+    want = render(scene, RenderOptions(mesh_bvh=False), num_iterations=2)[1]
+    for impl, kernel in (("v2p", mesh_kernel_v2p.KERNEL), ("binned", mesh_binned.PAIR_KERNEL)):
+        launches = kernel.launches
+        got = render(scene, RenderOptions(mesh_kernel_impl=impl), num_iterations=2)[1]
+        torch.cuda.synchronize()
+        assert kernel.launches > launches
+        assert torch.equal(got, want)

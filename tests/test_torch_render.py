@@ -67,15 +67,18 @@ def assert_radiance_close(got, want):
     assert psnr >= 40.0, psnr
 
 
-def check_plain_renderer_matches_jax(name, depth, rng_offset):
+def check_plain_renderer_matches_jax(name, depth, rng_offset, backend="pallas"):
+    """``backend``: "pallas" = the megakernel's wrapper (its plain version on
+    CPU tensors); "xla" = the plain wavefront directly, for scenes the
+    megakernel does not take (a mesh over 64 faces)."""
     js, ts = _scenes(name, depth)
     jstate = dataclasses.replace(jax_init_state(js), rng_offset=jnp.int32(rng_offset))
     _, jg, _ = jax_render(js, JaxRenderOptions(backend="xla"), num_iterations=2,
                           state=jstate)
     tstate = dataclasses.replace(init_render_state(ts), rng_offset=rng_offset)
     # backend="pallas" on CPU tensors: render_cuda's plain version
-    opts = RenderOptions(backend="pallas")
-    assert _resolve_backend(ts, opts) == "pallas"
+    opts = RenderOptions(backend=backend)
+    assert _resolve_backend(ts, opts) == backend
     _, tg, st = render(ts, opts, num_iterations=2, state=tstate)
     assert st.iteration == 2 and st.segments >= 2 * RES * RES
     jg, tg = np.asarray(jg), tg.numpy()

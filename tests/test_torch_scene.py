@@ -1,7 +1,8 @@
 """The port's scene loading and cameras against the JAX package.
 
-Every scene file with at most 64 mesh faces loads to the same arrays;
-larger meshes load but refuse to render until the BVH is ported.
+Every scene file with at most 64 mesh faces loads to the same arrays and
+without a hierarchy; a larger mesh loads with one (held against the JAX
+package's in tests/test_torch_bvh.py), moves with its scene and renders.
 """
 import dataclasses
 import math
@@ -48,7 +49,7 @@ def test_scene_loads_like_jax(name):
         np.testing.assert_array_equal(getattr(ts.materials, f).numpy(),
                                       np.asarray(getattr(js.materials, f)), err_msg=f)
     assert ts.mesh.num_faces == js.mesh.num_faces <= 64
-    assert not ts.mesh.needs_bvh
+    assert ts.mesh.bvh is None and js.mesh.bvh is None
     for f in ("vertices", "normals", "material_id", "valid", "aabb_lb", "aabb_ub"):
         np.testing.assert_array_equal(getattr(ts.mesh, f).numpy(),
                                       np.asarray(getattr(js.mesh, f)), err_msg=f)
@@ -57,15 +58,23 @@ def test_scene_loads_like_jax(name):
         np.testing.assert_array_equal(a, _cam_arrays(js.camera)[f], err_msg=f)
 
 
-def test_bvh_sized_mesh_refuses_to_render():
+def test_bvh_sized_mesh_loads_with_hierarchy_and_renders():
     scene = load_scene(str(REPO / "scenes" / "cornell_mesh_icosphere.txt"),
                        device="cpu")
-    assert scene.mesh.num_faces == 320 and scene.mesh.needs_bvh
+    bvh = scene.mesh.bvh
+    assert scene.mesh.num_faces == 320 and bvh is not None
+    assert (bvh.num_faces, bvh.n_clusters_real, bvh.n_supers_real,
+            bvh.n_hypers_real) == (320, 10, 2, 1)
+    assert bvh.faces_packed.shape == (512, 19)
+    moved = scene.to("cpu")
+    assert moved.mesh.bvh is not scene.mesh.bvh
+    assert torch.equal(moved.mesh.bvh.super_bounds, bvh.super_bounds)
     c = scene.camera
     scene = dataclasses.replace(scene, camera=camera.derive_camera(
         (8, 8), 45.0, c.position.numpy(), c.look_at.numpy(), c.up.numpy()))
-    with pytest.raises(NotImplementedError, match="ops/bvh.py"):
-        render(scene, RenderOptions(), num_iterations=1)
+    image, gbuffer, state = render(scene, RenderOptions(), num_iterations=1)
+    assert image.shape == (8, 8, 3) and torch.isfinite(gbuffer).all()
+    assert state.iteration == 1 and (gbuffer[6] > 0).float().mean() > 0.5
 
 
 @pytest.mark.parametrize("res", [(64, 64), (96, 48)])
