@@ -10,7 +10,13 @@ kernel under ``csrc/`` (built with nvcc for sm_90a at first use):
   * ``render/cuda_backend.py`` + ``csrc/render_megakernel.cu`` — the
     whole-render megakernel (JAX: render/pallas_backend.py),
   * ``models/conv_kernel.py`` + ``csrc/conv3x3_act.cu`` — the fused
-    conv3x3 + bias + LeakyReLU (+ affine) (JAX: models/conv_kernel.py).
+    conv3x3 + bias + LeakyReLU (+ affine), also the forward pass and input
+    gradient of every conv in training (``models/layers.py``), and
+    ``csrc/conv3x3_rows.cu`` — the row-band variant of the same conv
+    (JAX: models/conv_kernel.py),
+  * ``render/mesh_kernel_v2p.py``, ``render/mesh_binned.py`` +
+    ``csrc/mesh_*.cu`` — the mesh BVH traversal, bin subscription and pair
+    intersection (JAX: render/mesh_kernel_v2p.py, render/mesh_binned.py).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper runs its plain PyTorch version.

@@ -4,13 +4,19 @@
   interactive  headless frame loop: per frame orbit the camera, trace 1 spp
                into the G-buffer, denoise with the recurrent network
                (hidden state carried), write the frame
+  datagen      render (1-spp G-buffer, high-spp ground truth) training pairs
+  train        train the denoiser on such a corpus
+  eval         [input | prediction | ground truth] strips
+  export       checkpoint -> deployable model artifact
 
-Both run on ``--device cuda`` (the default) or ``--device cpu``; on the
-card the render goes through the megakernel (scenes with a mesh over 64
-faces: through the plain wavefront with the mesh BVH kernels) and the
-denoiser's convs through the fused conv kernel.  The JAX package's other commands, and
-``interactive --serve`` / ``--parity-denoise``, are not ported yet
-(ROADMAP queue A).
+All run on ``--device cuda`` (the default; ``--platform`` is the same
+flag under the JAX CLI's name) or ``--device cpu``; on the card the render
+goes through the megakernel (scenes with a mesh over 64 faces: through the
+plain wavefront with the mesh BVH kernels), the denoiser's convs through
+the fused conv kernels, and training's convs through the tile kernel
+forward and backward.  Not ported yet (ROADMAP queue A): ``randomize``,
+``preprocess``, ``bench``, ``datagen --variants``, ``train
+--data-parallel`` and ``interactive --serve``.
 """
 from __future__ import annotations
 
@@ -109,13 +115,11 @@ def cmd_interactive(args):
     if args.serve:
         raise NotImplementedError("interactive --serve (utils/preview.py) is "
                                   "not ported yet (ROADMAP queue A)")
-    if args.parity_denoise:
-        raise NotImplementedError("interactive --parity-denoise (the train "
-                                  "graph, models/autoencoder.py:apply_frame) "
-                                  "is not ported yet (ROADMAP queue A)")
-    from ..models import (apply_frame_fast_padded, init_autoencoder,
-                          init_hidden, load_model, model_options_from_meta,
-                          padded_resolution, prepare_inference)
+    from ..models import (apply_frame, apply_frame_fast_padded,
+                          init_autoencoder, init_hidden, load_model,
+                          model_options_from_meta, padded_resolution,
+                          prepare_inference)
+    from ..models.inference import edge_pad
     from ..render import render, render_gbuffer_frame
     from ..scene.camera import orbit_camera, orbit_params_from_camera
     from ..utils.imageio import save_png_scaled
@@ -137,12 +141,28 @@ def cmd_interactive(args):
                                             mopts)
         params = _tree_to(params, device)
         bn_state = _tree_to(bn_state, device)
-    if mopts.norm != "batch":
-        raise NotImplementedError("group-norm models need the train graph, "
-                                  "which is not ported yet (ROADMAP queue A)")
-    folded = prepare_inference(params, bn_state, mopts)
     hp, wp = padded_resolution(h, w)
-    hidden = init_hidden(1, hp, wp, mopts, dtype=torch.bfloat16, device=device)
+    if args.parity_denoise or mopts.norm != "batch":
+        # train-graph eval mode: the norms applied as they are each frame
+        # (group-norm models have no running statistics to fold)
+        hidden = init_hidden(1, hp, wp, mopts, device=device)
+
+        def denoise(gbuffer, hd):
+            x = edge_pad(gbuffer.permute(1, 2, 0)[None], hp, wp)
+            with torch.no_grad():
+                y, hd, _ = apply_frame(params, bn_state, x, hd, train=False,
+                                       bf16=True, options=mopts)
+            return y[:, :h, :w, :], hd
+    else:
+        # deployment path: BatchNorm folded into the convs, bfloat16
+        folded = prepare_inference(params, bn_state, mopts)
+        hidden = init_hidden(1, hp, wp, mopts, dtype=torch.bfloat16,
+                             device=device)
+
+        def denoise(gbuffer, hd):
+            return apply_frame_fast_padded(
+                folded, gbuffer.permute(1, 2, 0)[None], hd, mopts,
+                conv_impl=args.conv_impl)
     phi, theta, zoom = orbit_params_from_camera(scene.camera)
     os.makedirs(args.out_dir, exist_ok=True)
     gt_spp = (args.spp or scene.iterations) if args.ground_truth else 1
@@ -162,8 +182,7 @@ def cmd_interactive(args):
         else:
             _, gbuffer, _ = render_gbuffer_frame(fscene, options)
         t1 = clock.mark()
-        denoised, hidden = apply_frame_fast_padded(
-            folded, gbuffer.permute(1, 2, 0)[None], hidden, mopts)
+        denoised, hidden = denoise(gbuffer, hidden)
         t2 = clock.mark()
         out = denoised[0].clamp(0, 1).cpu().numpy()
         base = os.path.join(args.out_dir, f"frame_{frame:04d}")
@@ -184,6 +203,160 @@ def cmd_interactive(args):
     return records
 
 
+def _rescale(scene, res):
+    from ..scene.camera import derive_camera
+    cam = scene.camera
+    return dataclasses.replace(scene, camera=derive_camera(
+        (res, res), float(cam.fov[1]), cam.position.numpy(),
+        cam.look_at.numpy(), cam.up.numpy()))
+
+
+def cmd_datagen(args):
+    from ..data import generate_training_data
+    from ..scene import load_scene
+    if args.variants:
+        raise NotImplementedError("datagen --variants (scene/randomizer.py) "
+                                  "is not ported yet (ROADMAP queue A)")
+    device = resolve_device(args.device)
+    scenes = [load_scene(args.scene, device=device)]
+    if args.res:
+        scenes = [_rescale(s, args.res) for s in scenes]
+    return generate_training_data(
+        scenes, args.out_dir, frames_per_scene=args.frames,
+        gt_spp=args.gt_spp, noise_seeds=args.noise_seeds, movs=args.movs,
+        quantize=args.quantize or None,
+        options=_render_options(args), png_dump=args.png_dump)
+
+
+def cmd_train(args):
+    """Train the denoiser; returns the final train state."""
+    from ..config import TrainOptions
+    from ..data import SequenceDataset, sequence_batches
+    from ..train import (MetricsLogger, checkpoint_epoch, fit, fit_device_data,
+                         init_train_state, latest_checkpoint, load_checkpoint,
+                         save_checkpoint)
+    if args.data_parallel:
+        raise NotImplementedError("train --data-parallel (parallel/dp.py) is "
+                                  "not ported yet (ROADMAP queue A item 13)")
+    device = resolve_device(args.device)
+    topt = TrainOptions(lr=args.lr, epochs=args.epochs,
+                        crop_size=args.crop_size, batch_size=args.batch_size)
+    mopt = ModelOptions.tpu_friendly() if args.tpu_friendly else ModelOptions()
+    state = init_train_state(torch.Generator().manual_seed(topt.seed), mopt,
+                             topt, device=device)
+    resume_epoch = None
+    if args.resume:
+        ckpt = latest_checkpoint(args.model_dir)
+        if ckpt:
+            state = load_checkpoint(ckpt, state)
+            resume_epoch = checkpoint_epoch(ckpt)
+            print(f"resumed from {ckpt} at step {state.step}, "
+                  f"epoch {resume_epoch}")
+            if resume_epoch is not None and resume_epoch >= 2 ** 30:
+                # 'final': the previous run completed its schedule; a larger
+                # --epochs extends it from the step-count epoch inference
+                print("checkpoint is a completed run's 'final'; extending: "
+                      "falling back to step-count epoch inference")
+                resume_epoch = None
+    # Window boundaries come from the filenames themselves (the dataset
+    # builds its per-(scene, mov, noise) table).
+    dataset = SequenceDataset(os.path.join(args.data_dir, "input"),
+                              os.path.join(args.data_dir, "gt"),
+                              crop=args.crop_size > 0, crop_size=args.crop_size)
+    logger = MetricsLogger(args.log_dir)
+    start_ep = resume_epoch
+    if start_ep is None:
+        steps_per_epoch = max(1, len(dataset) // topt.batch_size)
+        start_ep = state.step // steps_per_epoch
+        if state.step:
+            print(f"warning: checkpoint lacks an epoch record; inferred "
+                  f"start epoch {start_ep} from step count (wrong if the "
+                  f"corpus or batch size changed)")
+    common = dict(epochs=args.epochs, logger=logger, log_every=args.log_every,
+                  checkpoint_fn=lambda s, e: save_checkpoint(args.model_dir, s, e),
+                  model_options=mopt, start_epoch=start_ep)
+    try:
+        if args.device_data:
+            return fit_device_data(state, dataset, topt, **common)
+        return fit(state,
+                   lambda epoch: sequence_batches(dataset, batch_size=topt.batch_size,
+                                                  seed=epoch),
+                   topt, **common)
+    finally:
+        logger.close()
+
+
+def _load_any_model(path, norm, device):
+    """(params, bn_state, ModelOptions) from a train checkpoint
+    (``model_<epoch>.npz``) or an exported artifact."""
+    from ..models import (load_model, model_options_from_meta,
+                          model_options_from_params)
+    from ..train import load_checkpoint
+    if path.endswith(".npz") and "model_" in os.path.basename(path):
+        state = load_checkpoint(path, device=device)
+        # widths come from the checkpoint's own shapes; the norm is not
+        # recoverable from them -> --norm
+        return state.params, state.bn_state, model_options_from_params(
+            state.params, norm=norm)
+    params, bn_state, meta = load_model(path, device=device)
+    return params, bn_state, model_options_from_meta(meta)
+
+
+def cmd_eval(args):
+    """[noisy input | prediction | ground truth] strips -> GIF (test.py:36-55).
+    Returns the strips as uint8 arrays."""
+    from ..data import SequenceDataset
+    from ..models import apply_frame, init_hidden
+    from ..utils.imageio import save_png_scaled
+    device = resolve_device(args.device)
+    params, bn_state, mopts = _load_any_model(args.model, args.norm, device)
+    dataset = SequenceDataset(os.path.join(args.data_dir, "input"),
+                              os.path.join(args.data_dir, "gt"), None)
+    frames = []
+    os.makedirs(args.out_dir, exist_ok=True)
+    for i in range(0, len(dataset), 7):
+        x, y = dataset[i]
+        t, h, w, _ = x.shape
+        hidden = init_hidden(1, h, w, mopts, device=device)
+        for j in range(t):
+            with torch.no_grad():
+                pred, hidden, _ = apply_frame(
+                    params, bn_state, torch.from_numpy(x[j:j + 1]).to(device),
+                    hidden, train=False, options=mopts)
+            strip = np.concatenate([
+                np.clip(x[j, :, :, :3], 0, 1),
+                np.clip(pred[0].cpu().numpy(), 0, 1),
+                np.clip(y[j], 0, 1)], axis=1)
+            frames.append((strip * 255).astype(np.uint8))
+        if args.max_sequences and len(frames) >= args.max_sequences * 7:
+            break
+    gif_path = os.path.join(args.out_dir, "network_output.gif")
+    try:
+        import imageio
+    except ImportError:
+        for k, fr in enumerate(frames):
+            save_png_scaled(os.path.join(args.out_dir, f"strip_{k:04d}"),
+                            fr / 255.0)
+        print(f"imageio unavailable; wrote {len(frames)} PNG strips")
+    else:
+        imageio.mimsave(gif_path, frames)
+        print(f"wrote {gif_path} ({len(frames)} frames)")
+    return frames
+
+
+def cmd_export(args):
+    """Checkpoint -> deployable artifact (convert_to_torchscript.py analogue)."""
+    from ..models import model_options_from_params, save_model
+    from ..train import load_checkpoint
+    # params/bn_state come wholly from the file (host tensors are enough);
+    # the exported widths metadata is derived from their shapes.
+    state = load_checkpoint(args.checkpoint, device="cpu")
+    mopt = model_options_from_params(state.params, norm=args.norm)
+    save_model(args.out, state.params, state.bn_state, options=mopt)
+    print(f"exported {args.out} (widths {mopt.widths}, norm {mopt.norm})")
+    return args.out
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -196,9 +369,13 @@ def build_parser() -> argparse.ArgumentParser:
         description="path tracer + recurrent denoiser on PyTorch/CUDA")
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def add_device(sp):
+        sp.add_argument("--device", "--platform", dest="device",
+                        choices=("cuda", "cpu"), default="cuda")
+
     def add_common(sp):
         sp.add_argument("scene", help="scene .txt file")
-        sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+        add_device(sp)
         sp.add_argument("--res", type=int, default=None)
         sp.add_argument("--res-wh", type=int, nargs=2, default=None,
                         metavar=("W", "H"),
@@ -246,12 +423,73 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--serve", type=int, default=0, metavar="PORT",
                     help="live preview (not ported yet)")
     sp.add_argument("--parity-denoise", action="store_true",
-                    help="train-graph eval path (not ported yet)")
+                    help="run the train-graph eval path instead of the "
+                         "BN-folded bfloat16 deployment path")
+    sp.add_argument("--conv-impl", default="auto",
+                    choices=("auto", "pallas2", "pallas"),
+                    help="conv kernel of the deployment path: the tile "
+                         "kernel (auto, pallas2) or the row-band kernel "
+                         "(pallas)")
     sp.add_argument("--ground-truth", action="store_true",
                     help="accumulate the scene's full spp budget (or --spp) "
                          "per frame before denoising")
     sp.add_argument("--spp", type=int, default=None)
     sp.set_defaults(fn=cmd_interactive)
+
+    sp = sub.add_parser("datagen", help="generate training data")
+    add_common(sp)
+    sp.add_argument("--out-dir", required=True)
+    sp.add_argument("--frames", type=int, default=60)
+    sp.add_argument("--gt-spp", type=int, default=512)
+    sp.add_argument("--noise-seeds", type=int, default=1)
+    sp.add_argument("--movs", type=int, default=2,
+                    help="camera pans per scene (reference 'mov' axis)")
+    sp.add_argument("--quantize", default="", choices=("u8", ""),
+                    help="store npy as uint8 (reference 8-bit regime)")
+    sp.add_argument("--variants", type=int, default=0,
+                    help="randomized scene variants (not ported yet)")
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--png-dump", action="store_true")
+    sp.set_defaults(fn=cmd_datagen)
+
+    sp = sub.add_parser("train", help="train the denoiser")
+    sp.add_argument("--data-dir", required=True)
+    sp.add_argument("--model-dir", default="models_out")
+    sp.add_argument("--log-dir", default="logs")
+    sp.add_argument("--epochs", type=int, default=100)
+    sp.add_argument("--lr", type=float, default=1e-3)
+    sp.add_argument("--crop-size", type=int, default=256)
+    sp.add_argument("--batch-size", type=int, default=1)
+    sp.add_argument("--resume", action="store_true")
+    sp.add_argument("--data-parallel", action="store_true",
+                    help="not ported yet")
+    sp.add_argument("--tpu-friendly", action="store_true",
+                    help="the JAX package's widths (32, 48, 64, 80, 104)")
+    sp.add_argument("--device-data", action="store_true",
+                    help="keep the whole corpus on the device and crop "
+                         "there (train/device_data.py)")
+    sp.add_argument("--log-every", type=int, default=5)
+    add_device(sp)
+    sp.set_defaults(fn=cmd_train)
+
+    sp = sub.add_parser("eval", help="render comparison strips / GIF")
+    sp.add_argument("--data-dir", required=True)
+    sp.add_argument("--model", required=True)
+    sp.add_argument("--out-dir", default="eval_out")
+    sp.add_argument("--max-sequences", type=int, default=8)
+    sp.add_argument("--norm", default="batch", choices=("batch", "group"),
+                    help="norm layer of a raw checkpoint (unrecoverable "
+                         "from its shapes; .npz artifacts carry it in meta)")
+    add_device(sp)
+    sp.set_defaults(fn=cmd_eval)
+
+    sp = sub.add_parser("export", help="checkpoint -> deployable .npz")
+    sp.add_argument("checkpoint")
+    sp.add_argument("--out", default="model_deploy.npz")
+    sp.add_argument("--norm", default="batch", choices=("batch", "group"),
+                    help="norm layer the checkpoint was trained with "
+                         "(unrecoverable from shapes; written to meta)")
+    sp.set_defaults(fn=cmd_export)
     return p
 
 

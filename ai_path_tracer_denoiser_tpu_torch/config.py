@@ -108,10 +108,7 @@ class RenderOptions:
 
 @dataclasses.dataclass(frozen=True)
 class TrainOptions:
-    """Training hyper-parameters (reference: train.py:41-49, 77, 86).
-
-    A plain copy for the training slice, which is not ported yet.
-    """
+    """Training hyper-parameters (reference: train.py:41-49, 77, 86)."""
 
     lr: float = 1e-3
     lr_step_epochs: int = 25
@@ -140,7 +137,8 @@ class ModelOptions:
     widths: Tuple[int, ...] = (32, 43, 57, 76, 101)
     leaky_slope: float = 0.1
     # "batch": BatchNorm (folds into the convs at inference).
-    # "group": GroupNorm(8) — its eval graph is not ported yet.
+    # "group": GroupNorm(8), stateless (effective groups = gcd(8, C));
+    #    such models run the eval graph (models/autoencoder.py:apply_frame).
     norm: str = "batch"
     bn_eps: float = 1e-5
     bn_momentum: float = 0.1
@@ -148,6 +146,13 @@ class ModelOptions:
     def __post_init__(self):
         if self.norm not in ("batch", "group"):
             raise ValueError(f"norm={self.norm!r}")
+
+    @staticmethod
+    def tpu_friendly() -> "ModelOptions":
+        """The JAX package's alternative channel plan, widths rounded up to
+        multiples of 8 (kept so that its checkpoints and ``--tpu-friendly``
+        carry over)."""
+        return ModelOptions(widths=(32, 48, 64, 80, 104))
 
 
 DEFAULT_RENDER = RenderOptions()

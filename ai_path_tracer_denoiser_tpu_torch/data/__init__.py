@@ -1,0 +1,2 @@
+from .dataset import SequenceDataset, find_max, sequence_batches  # noqa: F401
+from .datagen import generate_training_data  # noqa: F401

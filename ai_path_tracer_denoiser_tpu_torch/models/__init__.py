@@ -1,9 +1,12 @@
-from .autoencoder import init_autoencoder, init_hidden  # noqa: F401
+from .autoencoder import (apply_frame, apply_sequence,  # noqa: F401
+                          init_autoencoder, init_hidden, param_count)
 from .export import (load_model, model_options_from_meta,  # noqa: F401
-                     params_from_numpy)
+                     model_options_from_params, params_from_numpy, save_model,
+                     train_state_from_numpy, train_state_to_numpy)
 from .inference import (  # noqa: F401
     apply_frame_fast,
     apply_frame_fast_padded,
+    apply_sequence_fast,
     fold_batchnorm,
     padded_resolution,
     prepare_inference,

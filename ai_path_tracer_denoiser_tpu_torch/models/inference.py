@@ -5,23 +5,29 @@ At inference BatchNorm is a fixed per-channel affine, so bn1/bn3 of each
 block fold backward into the conv before them; bn2 of the downsample
 blocks follows a LeakyReLU (recurrent_autoencoder_model.py:31-32) and
 stays an explicit affine in its conv's epilogue.  The folded network is 28
-fused conv3x3 + bias + LeakyReLU (+ affine) calls per frame, each one
-``conv3x3_act_chw`` (models/conv_kernel.py): the CUDA kernel on the card,
-the plain version on the CPU.  Activations and hidden states are
-``compute_dtype`` (bfloat16 by default) in NHWC.
+fused conv3x3 + bias + LeakyReLU (+ affine) calls per frame, each through
+one of the two conv kernels of models/conv_kernel.py (``conv_impl``): the
+CUDA kernel on the card, its plain version on the CPU.  Activations and
+hidden states are ``compute_dtype`` (bfloat16 by default) in NHWC.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import dataclasses
+
 import torch
 
 from ..config import ModelOptions
-from .conv_kernel import conv3x3_act_chw
+from .conv_kernel import conv3x3_act, conv3x3_act_chw
+from .autoencoder import init_hidden
 from .layers import max_pool_2x2, upsample_nearest_2x
 
-# The JAX package's conv lowerings.  In the port they are all one
-# function: the CUDA kernel on the card, its plain version on the CPU.
+# The JAX package's conv lowerings.  The port has two: "pallas" is the
+# row-band kernel (``conv3x3_act``), every other name the tile kernel
+# (``conv3x3_act_chw``, the JAX package's "pallas2" and its default on the
+# accelerator); each is its CUDA kernel on the card and its plain version on
+# the CPU.
 CONV_IMPLS = ("auto", "pallas2", "pallas", "matmul", "native", "im2row")
 
 
@@ -75,15 +81,16 @@ def _conv_act(conv, x, slope, compute_dtype, impl: str = "auto",
               affine=None):
     """conv3x3 SAME + bias + LeakyReLU [+ affine x*s+t] on (N, H, W, C).
 
-    Every sample goes through ``conv3x3_act_chw``: the kernel on CUDA
-    tensors, the plain version on CPU ones, whatever the shape.
+    ``impl="pallas"`` goes through ``conv3x3_act`` (the row-band kernel),
+    every other name through ``conv3x3_act_chw`` (the tile kernel): the
+    kernel on CUDA tensors, its plain version on CPU ones, whatever the
+    shape (both kernels take any height and a batch).
     """
     if impl not in CONV_IMPLS:
         raise ValueError(f"conv impl {impl!r} not in {CONV_IMPLS}")
-    ys = [conv3x3_act_chw(x[i].to(compute_dtype).contiguous(), conv["w"],
-                          conv["b"], slope, affine=affine)
-          for i in range(x.shape[0])]
-    return torch.stack(ys)
+    fn = conv3x3_act if impl == "pallas" else conv3x3_act_chw
+    return fn(x.to(compute_dtype).contiguous(), conv["w"], conv["b"], slope,
+              affine=affine)
 
 
 def apply_frame_fast(folded: Dict, x: torch.Tensor, hidden: Dict,
@@ -141,6 +148,16 @@ def padded_resolution(h: int, w: int, multiple: int = 32) -> Tuple[int, int]:
     return up(h), up(w)
 
 
+def edge_pad(x: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
+    """(N, H, W, C) -> (N, hp, wp, C), the bottom/right edge replicated."""
+    _, h, w, _ = x.shape
+    if (hp, wp) == (h, w):
+        return x
+    rows = torch.arange(hp, device=x.device).clamp_max(h - 1)
+    cols = torch.arange(wp, device=x.device).clamp_max(w - 1)
+    return x[:, rows][:, :, cols]
+
+
 def apply_frame_fast_padded(folded: Dict, x: torch.Tensor, hidden: Dict,
                             options: Optional[ModelOptions] = None,
                             compute_dtype=torch.bfloat16,
@@ -149,14 +166,31 @@ def apply_frame_fast_padded(folded: Dict, x: torch.Tensor, hidden: Dict,
     bottom/right up to the next multiple of 32, denoise, crop back.
     ``hidden`` lives at the padded resolution."""
     _, h, w, _ = x.shape
-    hp, wp = padded_resolution(h, w)
-    if (hp, wp) != (h, w):
-        rows = torch.arange(hp, device=x.device).clamp_max(h - 1)
-        cols = torch.arange(wp, device=x.device).clamp_max(w - 1)
-        x = x[:, rows][:, :, cols]
+    x = edge_pad(x, *padded_resolution(h, w))
     y, hidden = apply_frame_fast(folded, x, hidden, options, compute_dtype,
                                  conv_impl)
     return y[:, :h, :w, :], hidden
+
+
+def apply_sequence_fast(folded: Dict, x_seq: torch.Tensor,
+                        options: Optional[ModelOptions] = None,
+                        compute_dtype=torch.bfloat16,
+                        conv_impl: str = "auto") -> torch.Tensor:
+    """``apply_frame_fast`` over a (T, N, H, W, 10) sequence, the hidden
+    state starting at zero and carried across the frames."""
+    _, n, h, w, _ = x_seq.shape
+    widths = tuple(folded[f"enc{i}"]["conv1"]["w"].shape[-1]
+                   for i in range(1, 6))
+    base = options if options is not None else ModelOptions()
+    opts = dataclasses.replace(base, widths=widths)
+    hidden = init_hidden(n, h, w, opts, dtype=compute_dtype,
+                         device=x_seq.device)
+    ys = []
+    for x in x_seq:
+        y, hidden = apply_frame_fast(folded, x, hidden, opts, compute_dtype,
+                                     conv_impl)
+        ys.append(y)
+    return torch.stack(ys)
 
 
 def prepare_inference(params: Dict, bn_state: Dict,

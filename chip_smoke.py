@@ -3,9 +3,15 @@
 
     python3 chip_smoke.py
 
-Builds the port's five CUDA kernels from csrc/, holds each against its
+Builds the port's six CUDA kernels from csrc/, holds each against its
 plain PyTorch version on the card, and drives the main paths through the
-CLI's entry point: the interactive 1-spp render + denoise loop at 800x800,
+CLI's entry point.  Training: `datagen` renders a 14-frame 512x512 corpus
+of the Cornell box with the render megakernel, `train` takes one epoch (3
+Adam steps) at batch 4 on 7-frame 256x256 crops at the reference widths in
+bfloat16 with the corpus on the card (every conv's forward pass and input
+gradient through the tile conv kernel), `export` writes the model and
+`interactive` runs it with the tile conv kernel and with the row-band conv
+kernel.  Serving: the interactive 1-spp render + denoise loop at 800x800,
 depth 8, with the shipped denoiser, on scenes/cornell_box.txt (render
 megakernel + conv kernel: 1 and 28 launches per frame) and on the mesh
 scenes cornell_mesh_blob.txt (5,120 faces, per-ray BVH traversal kernel)
@@ -13,8 +19,13 @@ and cornell_mesh_statue.txt (81,920 faces, bin subscription + pair kernels;
 plain wavefront, so no megakernel launch).  The mesh kernels are checked on
 the calls recorded from an actual 800x800 frame of each scene (primary rays
 and the first secondary bounce, with their real cull distances and dead
-lanes), whole and bit for bit.  It checks that every path went through its kernels
-and that the frames are finite and decode, and times each kernel beside
+lanes), whole and bit for bit.  The conv kernels are checked on the frame's 28
+shapes (bfloat16, float32 and batched input; the row-band kernel also on a
+zero-bordered input) and the conv's autograd on the train step's 28 shapes
+against the plain backward pass and `F.conv2d`'s.  It checks that every path
+went through its kernels with the launch counts it computes itself, that the
+loss on a fixed batch is finite and falls, that the checkpoint reloads to the
+same loss and that the frames are finite and decode, and times each kernel beside
 its plain version, the least time the card could take (its bound) and,
 where one exists, a PyTorch library call for the same function.  Each
 phase prints one JSON line; the last lines are the `kernels` summary, the
@@ -42,6 +53,11 @@ OPS_TRIANGLE = 60
 OPS_AABB = 27
 MODEL = os.path.join(ROOT, "artifacts", "denoiser_multiscene.npz")
 FRAMES = 8
+# The training cell: 14 orbit frames, one pan, one noise seed -> 14 windows,
+# 3 steps of batch 4 in one epoch.
+TRAIN_RES, TRAIN_FRAMES, TRAIN_GT_SPP = 512, 14, 64
+TRAIN_BATCH, TRAIN_CROP, TRAIN_SEQ = 4, 256, 7
+MODEL_FRAMES = 2              # interactive frames per conv impl, trained model
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, dense
 # bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores.
 HBM_BPS = 3.35e12
@@ -128,14 +144,20 @@ def main():
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import dataclasses
+    import shutil
 
     import numpy as np
     import torch.nn.functional as F
 
     from ai_path_tracer_denoiser_tpu_torch.app import cli
-    from ai_path_tracer_denoiser_tpu_torch.config import RenderOptions
+    from ai_path_tracer_denoiser_tpu_torch.config import (ModelOptions, RenderOptions,
+                                                          TrainOptions)
+    from ai_path_tracer_denoiser_tpu_torch.data import SequenceDataset
     from ai_path_tracer_denoiser_tpu_torch.models import (
-        conv_kernel, load_model, model_options_from_meta, prepare_inference)
+        conv_kernel, layers, load_model, model_options_from_meta, prepare_inference)
+    from ai_path_tracer_denoiser_tpu_torch.models.export import sorted_leaves
+    from ai_path_tracer_denoiser_tpu_torch.train import (device_data, init_train_state,
+                                                         load_checkpoint, trainer)
     from ai_path_tracer_denoiser_tpu_torch.render import (
         assemble_gbuffer, cuda_backend, init_render_state, mesh_binned,
         mesh_kernel_v2p, render_gbuffer_frame)
@@ -158,9 +180,10 @@ def main():
     emit({"phase": "device", "kind": kind, "count": count, "card": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # ---- 2. build all five kernels (one nvcc per source, in parallel) ----
-    kernels = (cuda_backend.KERNEL, conv_kernel.KERNEL, mesh_kernel_v2p.KERNEL,
-               mesh_binned.PHASE1_KERNEL, mesh_binned.PAIR_KERNEL)
+    # ---- 2. build all six kernels (one nvcc per source, in parallel) ----
+    kernels = (cuda_backend.KERNEL, conv_kernel.KERNEL, conv_kernel.ROWS_KERNEL,
+               mesh_kernel_v2p.KERNEL, mesh_binned.PHASE1_KERNEL,
+               mesh_binned.PAIR_KERNEL)
     t0 = time.time()
     build_all(kernels)
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
@@ -223,28 +246,64 @@ def main():
                    (f"dec{i}.conv2", res, p["conv2"], None)]
     require(len(shapes) == 28, "28 convs per frame")
     gen = torch.Generator(device=dev).manual_seed(0)
-    conv_rows, k2_err = [], 0.0
+
+    def within(got, want, f32):
+        """(ok, max abs err) at the stated tolerance of the output type."""
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        tol = 1e-3 + 1e-3 * want.abs() if f32 else 1e-2 + 1.6e-2 * want.abs()
+        return bool((err <= tol).all()) and bool(torch.isfinite(got).all()), float(err.detach().max())
+
+    conv_rows = []
+    errs = {"k2_bf16": 0.0, "k2_bf16_f32out": 0.0, "k2_f32in": 0.0, "k2_batched": 0.0,
+            "k3_bf16": 0.0, "k3_f32in": 0.0, "k3_vs_k2_plain_bf16": 0.0}
     for name, r, conv, aff in shapes:
         cin, co = conv["w"].shape[2], conv["w"].shape[3]
-        x = torch.randn((r, r * w0 // h0, cin), generator=gen, device=dev).to(torch.bfloat16)
-        got = conv_kernel.conv3x3_act_chw(x, conv["w"], conv["b"], 0.1, aff)
-        want = conv_kernel.conv3x3_act_plain(x, conv["w"], conv["b"], 0.1, aff)
-        got32 = conv_kernel.conv3x3_act_chw(x, conv["w"], conv["b"], 0.1, aff, "float32")
-        want32 = conv_kernel.conv3x3_act_plain(x, conv["w"], conv["b"], 0.1, aff, "float32")
-        err = float((got.float() - want.float()).abs().max())
-        err32 = float((got32 - want32).abs().max())
-        ok16 = bool(((got.float() - want.float()).abs()
-                     <= 1e-2 + 1.6e-2 * want.float().abs()).all())
-        ok32 = bool(((got32 - want32).abs() <= 1e-3 + 1e-3 * want32.abs()).all())
-        k2_err = max(k2_err, err)
-        conv_rows.append({"layer": name, "shape": [r, x.shape[1], cin, co],
-                          "affine": aff is not None, "x": x, "conv": conv, "aff": aff,
-                          "max_abs_err_bf16": err, "max_abs_err_f32": err32})
-        require(torch.isfinite(got.float()).all().item(), f"{name} finite")
-        require(ok16 and ok32, f"conv kernel vs plain at {name}")
-    emit({"phase": "conv_check", "shapes": len(shapes),
-          "max_abs_err_bf16": k2_err,
-          "max_abs_err_f32": max(r["max_abs_err_f32"] for r in conv_rows),
+        wd = r * w0 // h0
+        x32 = torch.randn((r, wd, cin), generator=gen, device=dev)
+        x = x32.to(torch.bfloat16)
+        w, b = conv["w"], conv["b"]
+        checks = {
+            # the tile kernel: bfloat16 in and out, float32 out, float32 in, a batch of 2
+            "k2_bf16": (conv_kernel.conv3x3_act_chw(x, w, b, 0.1, aff),
+                        conv_kernel.conv3x3_act_plain(x, w, b, 0.1, aff), False),
+            "k2_bf16_f32out": (conv_kernel.conv3x3_act_chw(x, w, b, 0.1, aff, "float32"),
+                               conv_kernel.conv3x3_act_plain(x, w, b, 0.1, aff, "float32"),
+                               True),
+            "k2_f32in": (conv_kernel.conv3x3_act_chw(x32, w, b, 0.1, aff),
+                         conv_kernel.conv3x3_act_plain(x32, w.float(), b, 0.1, aff), True),
+            # the row-band kernel against its own plain version, and the tile kernel's
+            "k3_bf16": (conv_kernel.conv3x3_act(x, w, b, 0.1, aff),
+                        conv_kernel.conv3x3_act_rows_plain(x, w, b, 0.1, aff), False),
+            "k3_f32in": (conv_kernel.conv3x3_act(x32, w, b, 0.1, aff),
+                         conv_kernel.conv3x3_act_rows_plain(x32, w.float(), b, 0.1, aff), True),
+        }
+        checks["k3_vs_k2_plain_bf16"] = (checks["k3_bf16"][0], checks["k2_bf16"][1], False)
+        xb = torch.stack([x, x.flip(0)])
+        checks["k2_batched"] = (conv_kernel.conv3x3_act_chw(xb, w, b, 0.1, aff),
+                                conv_kernel.conv3x3_act_plain(xb, w, b, 0.1, aff), False)
+        for key, (got, want, f32) in checks.items():
+            ok, err = within(got, want, f32)
+            errs[key] = max(errs[key], err)
+            require(got.shape == want.shape and got.dtype == want.dtype and ok,
+                    f"conv check {key} at {name}: max abs err {err}")
+        conv_rows.append({"layer": name, "shape": [r, wd, cin, co],
+                          "affine": aff is not None, "x": x, "conv": conv, "aff": aff})
+    # the row-band kernel on a zero-bordered input (enc1.conv2: 64 -> 32, affine)
+    name, r, conv, aff = shapes[1]
+    x = conv_rows[1]["x"]
+    got = conv_kernel.conv3x3_act(conv_kernel.conv_input_pad(x).contiguous(), conv["w"],
+                                  conv["b"], 0.1, aff, pre_padded=True, width=x.shape[1])
+    ok, errs["k3_pre_padded"] = within(
+        got, conv_kernel.conv3x3_act_rows_plain(x, conv["w"], conv["b"], 0.1, aff), False)
+    require(ok, f"row-band kernel on a pre-padded input at {name}")
+    torch.cuda.synchronize()
+    k2_err, k3_err = errs["k2_bf16"], errs["k3_bf16"]
+    emit({"phase": "conv_check", "shapes": len(shapes), "max_abs_err": errs,
+          "checks": "tile kernel (K2): bf16 in/out, bf16 in f32 out, f32 in/out, batch "
+                    "of 2; row-band kernel (K3): bf16, f32 in/out, each against its own "
+                    "plain version, K3 also against K2's plain version and once on a "
+                    "pre-padded input",
           "tolerance": "bf16 out |k-p| <= 1e-2 + 1.6e-2|p| (one bf16 rounding "
                        "step); f32 out |k-p| <= 1e-3 + 1e-3|p| (summation order)"})
 
@@ -258,7 +317,8 @@ def main():
     require(launches["render_megakernel"] == FRAMES, f"K1 launches {launches}")
     require(launches["conv3x3_act"] == 28 * FRAMES, f"K2 launches {launches}")
     require(launches["mesh_bvh_v2p"] == launches["mesh_binned_phase1"]
-            == launches["mesh_binned_pair"] == 0, f"mesh launches {launches}")
+            == launches["mesh_binned_pair"] == launches["conv3x3_rows"] == 0,
+            f"mesh and row-band conv launches {launches}")
     for rec in records:
         require(rec["finite"], f"frame {rec['frame']} finite")
         img = read_png(rec["path"])
@@ -289,33 +349,394 @@ def main():
           "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
           "segments": plain_state["s"].segments, "bytes": n_bytes, "ops": ops})
 
-    k2 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-          "bytes_s": 0.0, "ops_s": 0.0}
+    # Both conv kernels per shape of the frame, side by side, beside their
+    # plain versions, the bound and F.conv2d.
+    conv_sum = {k: 0.0 for k in ("ms", "rows_ms", "plain_ms", "rows_plain_ms",
+                                 "library_ms", "bound_ms", "bytes_s", "ops_s")}
     per_shape = []
     for row in conv_rows:
         x, conv, aff = row["x"], row["conv"], row["aff"]
         r, wd, cin, co = row["shape"]
-        ms = time_ms(lambda: conv_kernel.conv3x3_act_chw(x, conv["w"], conv["b"], 0.1, aff), 20)
-        pms = time_ms(lambda: conv_kernel.conv3x3_act_plain(x, conv["w"], conv["b"], 0.1, aff), 5)
+        w, b = conv["w"], conv["b"]
         xn = x.permute(2, 0, 1)[None]                       # NCHW view, channels-last
-        wn = conv["w"].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-        bn = conv["b"].to(torch.bfloat16)
-        lms = time_ms(lambda: F.conv2d(xn, wn, bn, padding=1), 20)
+        wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        bn = b.to(torch.bfloat16)
         nb, macs = conv_kernel.conv_work(r, wd, cin, co)
-        bms, _ = bound_ms(nb, 2 * macs, BF16_FLOPS)
-        k2["ms"] += ms
-        k2["plain_ms"] += pms
-        k2["library_ms"] += lms
-        k2["bound_ms"] += bms
-        k2["bytes_s"] += nb / HBM_BPS
-        k2["ops_s"] += 2 * macs / BF16_FLOPS
+        t = {"ms": time_ms(lambda: conv_kernel.conv3x3_act_chw(x, w, b, 0.1, aff), 20),
+             "rows_ms": time_ms(lambda: conv_kernel.conv3x3_act(x, w, b, 0.1, aff), 20),
+             "plain_ms": time_ms(lambda: conv_kernel.conv3x3_act_plain(x, w, b, 0.1, aff), 5),
+             "rows_plain_ms": time_ms(
+                 lambda: conv_kernel.conv3x3_act_rows_plain(x, w, b, 0.1, aff), 5),
+             "library_ms": time_ms(lambda: F.conv2d(xn, wn, bn, padding=1), 20),
+             "bound_ms": bound_ms(nb, 2 * macs, BF16_FLOPS)[0],
+             "bytes_s": nb / HBM_BPS, "ops_s": 2 * macs / BF16_FLOPS}
+        for k, v in t.items():
+            conv_sum[k] += v
         per_shape.append({"layer": row["layer"], "shape": row["shape"],
-                          "affine": row["affine"], "ms": ms, "plain_ms": pms,
-                          "library_ms": lms, "bound_ms": bms})
+                          "affine": row["affine"],
+                          **{k: v for k, v in t.items() if k.endswith("_ms") or k == "ms"}})
+    conv_bound_by = "bytes" if conv_sum["bytes_s"] >= conv_sum["ops_s"] else "operations"
     emit({"phase": "conv_timing", "card": smi, "per_shape": per_shape,
-          "frame_ms": k2["ms"], "frame_plain_ms": k2["plain_ms"],
-          "frame_library_ms": k2["library_ms"], "frame_bound_ms": k2["bound_ms"],
+          "frame_ms": conv_sum["ms"], "frame_rows_ms": conv_sum["rows_ms"],
+          "frame_plain_ms": conv_sum["plain_ms"],
+          "frame_rows_plain_ms": conv_sum["rows_plain_ms"],
+          "frame_library_ms": conv_sum["library_ms"], "frame_bound_ms": conv_sum["bound_ms"],
+          "bound_by": conv_bound_by,
+          "columns": "ms = tile kernel (K2), rows_ms = row-band kernel (K3)",
           "library_call": "F.conv2d(bf16, channels_last, bias) -- conv + bias only"})
+    del conv_rows
+
+    def busy_ms(fn):
+        """The card's busy time in ``fn()``: the profiler's sum of kernel
+        times.  A trace that comes back without device events is taken once
+        more before the check fails."""
+        from torch.profiler import ProfilerActivity, profile
+        for _ in range(2):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            total_us = sum(getattr(e, "self_device_time_total",
+                                   getattr(e, "self_cuda_time_total", 0))
+                           for e in prof.key_averages())
+            if total_us > 0:
+                return total_us / 1e3
+        require(False, "the profiler reported device time")
+
+    def timed_calls(module, name, bucket_of):
+        """Context manager: time every call of ``module.name`` with CUDA events
+        into ``spans[bucket_of(args, kwargs)]``; ``total_ms()`` after a
+        synchronise sums each bucket."""
+        spans = {}
+
+        @contextlib.contextmanager
+        def cm():
+            orig = getattr(module, name)
+
+            def wrapped(*args, **kwargs):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                out = orig(*args, **kwargs)
+                b.record()
+                spans.setdefault(bucket_of(args, kwargs), []).append((a, b))
+                return out
+
+            setattr(module, name, wrapped)
+            try:
+                yield
+            finally:
+                setattr(module, name, orig)
+
+        def total_ms():
+            return {k: (len(v), sum(a.elapsed_time(b) for a, b in v))
+                    for k, v in spans.items()}
+        return cm, total_ms
+
+    # ---- 6b. the conv's autograd at the train step's 28 shapes ----
+    # Conv3x3Function (forward and input gradient through the tile kernel,
+    # weight gradient as plain contractions) against the plain backward pass
+    # (the forward pass's scatter, float32) and against F.conv2d's autograd in
+    # float32, on a batch of 4 at 256x256 down to 8x8, the reference widths;
+    # then the times of its three parts and of F.conv2d's forward + backward.
+    mopt = ModelOptions()
+    ref_params, _ = trainer.init_autoencoder(torch.Generator().manual_seed(0), mopt)
+    train_shapes = []                                   # (layer, H, Cin, Co)
+    res = TRAIN_CROP
+    for i in range(1, 6):
+        train_shapes += [(f"enc{i}.conv{j}", res, *ref_params[f"enc{i}"][f"conv{j}"]["w"].shape[2:])
+                         for j in (1, 2, 3)]
+        res //= 2
+    train_shapes += [(f"bottleneck.conv{j}", res,
+                      *ref_params["bottleneck"][f"conv{j}"]["w"].shape[2:]) for j in (1, 2, 3)]
+    for i in range(5, 0, -1):
+        res *= 2
+        train_shapes += [(f"dec{i}.conv{j}", res, *ref_params[f"dec{i}"][f"conv{j}"]["w"].shape[2:])
+                         for j in (1, 2)]
+    require(len(train_shapes) == 28 and train_shapes[0][1:] == (256, 10, 32)
+            and train_shapes[-1][1:] == (256, 3, 3), "the train step's 28 conv shapes")
+    grad_err = {"bfloat16": {"y": 0.0, "dx": 0.0, "dw": 0.0, "dx_lib": 0.0, "dw_lib": 0.0},
+                "float32": {"y": 0.0, "dx": 0.0, "dw": 0.0, "dx_lib": 0.0, "dw_lib": 0.0}}
+    grad_rows = []
+    grad_sum = {k: 0.0 for k in ("fwd_ms", "dgrad_ms", "wgrad_ms", "library_fwd_bwd_ms",
+                                 "fwd_bound_ms", "dgrad_bound_ms")}
+    n = TRAIN_BATCH
+    for name, r, cin, co in train_shapes:
+        x32 = torch.randn((n, r, r, cin), generator=gen, device=dev)
+        w32 = torch.randn((3, 3, cin, co), generator=gen, device=dev) * (2.0 / (9 * cin)) ** 0.5
+        g32 = torch.randn((n, r, r, co), generator=gen, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            f32 = dtype == torch.float32
+            x = x32.to(dtype, copy=True).requires_grad_(True)
+            w = w32.to(dtype, copy=True).requires_grad_(True)
+            before = conv_kernel.KERNEL.launches
+            y = layers.Conv3x3Function.apply(x, w)
+            dx, dw = torch.autograd.grad(y, (x, w), g32)
+            require(conv_kernel.KERNEL.launches == before + 2, f"{name}: forward + dgrad launches")
+            require(y.dtype == torch.float32 and dx.dtype == dtype and dw.dtype == dtype,
+                    f"{name}: dtypes of y, dx, dw")
+            g = g32.to(dtype)                     # the backward pass rounds g to x's dtype
+            want_y = conv_kernel.conv3x3_act_plain(x.detach(), w.detach(), torch.zeros(co, device=dev),
+                                                   1.0, None, "float32")
+            want_dx, want_dw = conv_kernel.conv3x3_backward_plain(x.detach(), w.detach(), g)
+            xl = x.detach().float().permute(0, 3, 1, 2).requires_grad_(True)
+            wl = w.detach().float().permute(3, 2, 0, 1).requires_grad_(True)
+            lib_dx, lib_dw = torch.autograd.grad(F.conv2d(xl, wl, padding=1), (xl, wl),
+                                                 g.float().permute(0, 3, 1, 2))
+            pairs = {"y": (y, want_y, True), "dx": (dx, want_dx, f32), "dw": (dw, want_dw, f32),
+                     "dx_lib": (dx, lib_dx.permute(0, 2, 3, 1), f32),
+                     "dw_lib": (dw, lib_dw.permute(2, 3, 1, 0), f32)}
+            for key, (got, want, tight) in pairs.items():
+                # dw sums N*H*W products: its tolerance scales with its size
+                scale = float(want.abs().max()) if key.startswith("dw") else 1.0
+                ok, err = within(got / scale, want / scale, tight)
+                grad_err[str(dtype)[6:]][key] = max(grad_err[str(dtype)[6:]][key], err)
+                require(ok, f"conv grad check {key} at {name} ({dtype}): err {err} of scale {scale}")
+        # no input gradient asked for: the dgrad launch is skipped
+        before = conv_kernel.KERNEL.launches
+        xb = x32.to(torch.bfloat16)
+        wb = w32.to(torch.bfloat16).requires_grad_(True)
+        torch.autograd.grad(layers.Conv3x3Function.apply(xb, wb), (wb,), g32)
+        require(conv_kernel.KERNEL.launches == before + 1, f"{name}: dgrad skipped")
+        # times of the three parts (bfloat16), and F.conv2d forward + backward
+        wb = wb.detach()
+        gb = g32.to(torch.bfloat16)
+        wt = wb.flip(0, 1).transpose(2, 3).contiguous()
+        zb_o, zb_i = torch.zeros(co, device=dev), torch.zeros(cin, device=dev)
+        xn = xb.permute(0, 3, 1, 2).requires_grad_(True)
+        wn = wb.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+        gn = gb.permute(0, 3, 1, 2)
+        fb, fmacs = conv_kernel.conv_work(r, r, cin, co, out_bytes=4, n=n)
+        db, dmacs = conv_kernel.conv_work(r, r, co, cin, out_bytes=2, n=n)
+        t = {"fwd_ms": time_ms(lambda: conv_kernel.conv3x3_act_chw(xb, wb, zb_o, 1.0, None, "float32"), 10),
+             "dgrad_ms": time_ms(lambda: conv_kernel.conv3x3_act_chw(gb, wt, zb_i, 1.0), 10),
+             "wgrad_ms": time_ms(lambda: conv_kernel.conv3x3_wgrad(xb, gb), 5),
+             "library_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                 F.conv2d(xn, wn, padding=1), (xn, wn), gn), 10),
+             "fwd_bound_ms": bound_ms(fb, 2 * fmacs, BF16_FLOPS)[0],
+             "dgrad_bound_ms": bound_ms(db, 2 * dmacs, BF16_FLOPS)[0]}
+        for k, v in t.items():
+            # per step: 7 frames; the input layer's dgrad is never asked for
+            if not (name == "enc1.conv1" and k.startswith("dgrad")):
+                grad_sum[k] += TRAIN_SEQ * v
+        grad_rows.append({"layer": name, "shape": [n, r, r, cin, co], **t})
+    torch.cuda.synchronize()
+    emit({"phase": "conv_grad_check", "shapes": len(train_shapes), "batch": n,
+          "max_abs_err": grad_err,
+          "against": "y, dx, dw: the plain forward/backward pass in float32 on the same "
+                     "(rounded) inputs; dx_lib, dw_lib: F.conv2d's autograd in float32 "
+                     "(TF32 off); dw compared relative to its largest entry",
+          "tolerance": "bfloat16 dx, dw |k-p| <= 1e-2 + 1.6e-2|p| (rounded once to "
+                       "bfloat16); float32 y, dx, dw |k-p| <= 1e-3 + 1e-3|p|",
+          "launches_checked": "forward + dgrad = 2 per call, 1 when x needs no gradient"})
+    emit({"phase": "conv_grad_timing", "card": smi, "per_shape": grad_rows,
+          "per_step_ms": grad_sum,
+          "per_step": "7 frames x 28 convs, less the input layer's 7 dgrads; batch 4, "
+                      "bfloat16 in, forward float32 out",
+          "library_call": "F.conv2d(bf16, channels_last) forward + autograd backward "
+                          "(dx and dw)"})
+
+    # ---- 6c. the training path: datagen -> train -> export -> interactive ----
+    train_dir = os.path.join(OUT_DIR, "train")
+    shutil.rmtree(train_dir, ignore_errors=True)     # datagen resumes: start empty
+    data_dir, model_dir = os.path.join(train_dir, "data"), os.path.join(train_dir, "models")
+    log_dir = os.path.join(train_dir, "logs")
+
+    def reset_counts():
+        for k in kernels:
+            k.launches = 0
+
+    def launch_counts():
+        return {k.name: k.launches for k in kernels}
+
+    reset_counts()
+    t0 = time.time()
+    cli.main(["datagen", SCENE, "--res", str(TRAIN_RES), "--frames", str(TRAIN_FRAMES),
+              "--movs", "1", "--gt-spp", str(TRAIN_GT_SPP), "--noise-seeds", "1",
+              "--out-dir", data_dir])
+    torch.cuda.synchronize()
+    datagen_s = time.time() - t0
+    datagen_launches = launch_counts()
+    # per frame: one launch for the 64-spp ground truth, one for the 1-spp input
+    require(datagen_launches["render_megakernel"] == 2 * TRAIN_FRAMES
+            and sum(datagen_launches.values()) == 2 * TRAIN_FRAMES,
+            f"datagen launches {datagen_launches}")
+    dataset = SequenceDataset(os.path.join(data_dir, "input"), os.path.join(data_dir, "gt"),
+                              crop=True, crop_size=TRAIN_CROP)
+    require(len(dataset) == TRAIN_FRAMES and dataset.inputs[0] == "000_0_0_0000.npy"
+            and dataset.inputs[-1] == f"000_0_0_{TRAIN_FRAMES - 1:04d}.npy", "datagen's stems")
+    x0, y0 = np.load(dataset.path_of(0)), np.load(dataset.path_of(0, gt=True))
+    require(x0.shape == (TRAIN_RES, TRAIN_RES, 10) and y0.shape == (TRAIN_RES, TRAIN_RES, 3)
+            and x0.dtype == y0.dtype == np.float32 and np.isfinite(x0).all()
+            and 0.0 <= y0.min() and y0.max() <= 1.0 and y0.std() > 0.05
+            and (x0[..., 6] > 0).mean() > 0.8, "datagen's arrays")
+
+    topt = TrainOptions(epochs=1, crop_size=TRAIN_CROP, batch_size=TRAIN_BATCH)
+    require(topt.bf16_compute and topt.sequence_length == TRAIN_SEQ and not topt.remat_frames,
+            "the reference train options")
+    X, Y, starts = device_data.load_device_dataset(dataset, dtype=torch.bfloat16, device=dev)
+    fixed_x, fixed_y = device_data._crop_batch(
+        X, Y, starts[[0, 3, 6, 9]].tolist(), [0, 0, TRAIN_CROP, TRAIN_CROP],
+        [0, TRAIN_CROP, 0, TRAIN_CROP], TRAIN_SEQ, TRAIN_CROP, TRAIN_CROP)
+    require(fixed_x.shape == (TRAIN_SEQ, TRAIN_BATCH, TRAIN_CROP, TRAIN_CROP, 10), "fixed batch")
+
+    def fixed_loss(state):
+        with torch.no_grad():
+            total, _ = trainer.loss_fn(state.params, state.bn_state, fixed_x, fixed_y, topt,
+                                       topt.bf16_compute, mopt)
+        return float(total)
+
+    state0 = init_train_state(torch.Generator().manual_seed(topt.seed), mopt, topt, device=dev)
+    loss_before = fixed_loss(state0)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    final = cli.main(["train", "--data-dir", data_dir, "--model-dir", model_dir,
+                      "--log-dir", log_dir, "--epochs", "1", "--batch-size", str(TRAIN_BATCH),
+                      "--crop-size", str(TRAIN_CROP), "--device-data", "--log-every", "1"])
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    peak_bytes = torch.cuda.max_memory_allocated()
+    train_launches = launch_counts()
+    steps = TRAIN_FRAMES // TRAIN_BATCH
+    k2_per_step = 28 * TRAIN_SEQ + (28 * TRAIN_SEQ - TRAIN_SEQ)   # forward + dgrad
+    require(final.step == steps and steps >= 3, f"optimiser steps {final.step}")
+    require(train_launches["conv3x3_act"] == steps * k2_per_step
+            and sum(train_launches.values()) == steps * k2_per_step,
+            f"train launches {train_launches}, expected {steps} x {k2_per_step} of K2 alone")
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        logged = [json.loads(line)["total"] for line in f]
+    loss_after = fixed_loss(final)
+    ckpt = os.path.join(model_dir, "model_final.npz")
+    loss_reloaded = fixed_loss(load_checkpoint(ckpt, device=dev))
+    require(len(logged) == steps and all(np.isfinite(logged))
+            and np.isfinite([loss_before, loss_after]).all(), "losses finite")
+    require(loss_after < loss_before, f"loss on the fixed batch {loss_before} -> {loss_after}")
+    require(abs(loss_reloaded - loss_after) <= 1e-6 * abs(loss_after),
+            f"checkpoint reloads to the same loss: {loss_reloaded} vs {loss_after}")
+    deploy = os.path.join(train_dir, "model_deploy.npz")
+    cli.main(["export", ckpt, "--out", deploy])
+    impl_frames, impl_launches, impl_ms = {}, {}, {}
+    for impl in ("pallas2", "pallas"):
+        reset_counts()
+        recs = cli.main(["interactive", SCENE, "--frames", str(MODEL_FRAMES), "--model", deploy,
+                         "--out-dir", os.path.join(train_dir, f"frames_{impl}"),
+                         "--conv-impl", impl, "--save-arrays"])
+        impl_launches[impl] = launch_counts()
+        impl_ms[impl] = [round(r_["denoise_ms"], 3) for r_ in recs]
+        require(all(r_["finite"] for r_ in recs), f"{impl}: frames finite")
+        impl_frames[impl] = [np.load(r_["path"][:-len(".png")] + "_denoised.npy") for r_ in recs]
+    used, other = ("conv3x3_act", "conv3x3_rows")
+    require(impl_launches["pallas2"][used] == 28 * MODEL_FRAMES
+            and impl_launches["pallas2"][other] == 0
+            and impl_launches["pallas"][other] == 28 * MODEL_FRAMES
+            and impl_launches["pallas"][used] == 0
+            and impl_launches["pallas"]["render_megakernel"] == MODEL_FRAMES,
+            f"conv impl launches {impl_launches}")
+    rows_launches = impl_launches["pallas"][other]
+    impl_rel = [float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                for a, b in zip(impl_frames["pallas"], impl_frames["pallas2"])]
+    impl_close = [float((np.abs(a - b) <= 1e-2 + 1.6e-2 * np.abs(b)).mean())
+                  for a, b in zip(impl_frames["pallas"], impl_frames["pallas2"])]
+    require(max(impl_rel) < 2e-2 and min(impl_close) >= 0.99,
+            f"the two conv impls' frames: rel L2 {impl_rel}, close fraction {impl_close}")
+    emit({"phase": "train_path", "card": smi, "scene": "cornell_box",
+          "corpus": {"res": TRAIN_RES, "frames": TRAIN_FRAMES, "gt_spp": TRAIN_GT_SPP,
+                     "seconds": datagen_s, "launches": datagen_launches},
+          "train": {"widths": list(mopt.widths), "batch": TRAIN_BATCH, "crop": TRAIN_CROP,
+                    "sequence": TRAIN_SEQ, "bf16_compute": True, "steps": steps,
+                    "seconds_with_upload_and_checkpoints": train_s,
+                    "launches": train_launches, "k2_launches_per_step": k2_per_step,
+                    "k2_launches_per_step_formula": "28*7 forward + (28*7 - 7) dgrad, "
+                                                    "one launch per batch",
+                    "logged_step_losses": logged,
+                    "peak_memory_bytes": peak_bytes,
+                    "peak_memory_gib": peak_bytes / 2 ** 30},
+          "fixed_batch_loss": {"before": loss_before, "after": loss_after,
+                               "reloaded_checkpoint": loss_reloaded},
+          "interactive_with_trained_model": {
+              "frames_per_impl": MODEL_FRAMES, "launches": impl_launches,
+              "denoise_ms": impl_ms, "rel_l2_pallas_vs_pallas2": impl_rel,
+              "fraction_within_bf16_tolerance": impl_close,
+              "tolerance": "rel L2 < 2e-2 and |a-b| <= 1e-2 + 1.6e-2|b| on >= 99% of "
+                           "values: each of 28 layers rounds to bfloat16, and the two "
+                           "kernels sum in different orders"}})
+
+    # ---- 6d. where a train step's time goes ----
+    # The user's entry (trainer.train_step) on the fixed batch; its three parts
+    # with events between them; inside one more step the conv kernel's forward
+    # and dgrad calls and the weight gradient, each call between two events;
+    # and the card's busy time in a step (profiler).
+    state = final
+    step_ms = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, _ = trainer.train_step(state, fixed_x, fixed_y, topt, mopt)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    parts = {"forward_ms": [], "backward_ms": [], "optimizer_ms": []}
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        leaves = [leaf.detach().requires_grad_(True) for _, leaf in sorted_leaves(state.params)]
+        params = trainer.tree_from_leaves(state.params, leaves)
+        ev[0].record()
+        total, (_, new_bn) = trainer.loss_fn(params, state.bn_state, fixed_x, fixed_y, topt,
+                                             True, mopt)
+        ev[1].record()
+        grads = torch.autograd.grad(total, leaves)
+        ev[2].record()
+        new_params, opt_state = trainer.adam_update(
+            state.params, trainer.tree_from_leaves(state.params, list(grads)),
+            state.opt_state, state.lr)
+        ev[3].record()
+        ev[3].synchronize()
+        for key, i in (("forward_ms", 0), ("backward_ms", 1), ("optimizer_ms", 2)):
+            parts[key].append(ev[i].elapsed_time(ev[i + 1]))
+        state = dataclasses.replace(state, params=new_params, opt_state=opt_state,
+                                    step=state.step + 1)
+    conv_cm, conv_total = timed_calls(
+        conv_kernel, "conv3x3_act_chw",
+        lambda args, kwargs: "k2_forward" if (kwargs.get("out_dtype") or
+                                              (len(args) > 5 and args[5])) else "k2_dgrad")
+    wgrad_cm, wgrad_total = timed_calls(conv_kernel, "conv3x3_wgrad", lambda a, k: "wgrad")
+    with conv_cm(), wgrad_cm():
+        trainer.train_step(state, fixed_x, fixed_y, topt, mopt)
+    torch.cuda.synchronize()
+    in_step = {**conv_total(), **wgrad_total()}
+    require(in_step["k2_forward"][0] == 28 * TRAIN_SEQ
+            and in_step["k2_dgrad"][0] == 28 * TRAIN_SEQ - TRAIN_SEQ
+            and in_step["wgrad"][0] == 28 * TRAIN_SEQ, f"calls inside a step {in_step}")
+    # how long the host takes to dispatch a step, against the card's time for it
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    trainer.train_step(state, fixed_x, fixed_y, topt, mopt)
+    b.record()
+    host_dispatch_ms = (time.perf_counter() - t0) * 1e3
+    b.synchronize()
+    dispatched_step_ms = a.elapsed_time(b)
+    step_median = statistics.median(step_ms[1:])
+    k2_train = {"train_launches_per_step": k2_per_step,
+                "train_forward_ms_per_step": in_step["k2_forward"][1],
+                "train_dgrad_ms_per_step": in_step["k2_dgrad"][1],
+                "train_bound_ms_per_step": grad_sum["fwd_bound_ms"] + grad_sum["dgrad_bound_ms"],
+                "train_library_fwd_bwd_ms_per_step": grad_sum["library_fwd_bwd_ms"]}
+    emit({"phase": "train_timing", "card": smi, "batch": TRAIN_BATCH, "crop": TRAIN_CROP,
+          "sequence": TRAIN_SEQ, "step_ms": step_ms, "step_ms_median_after_first": step_median,
+          "parts_ms_median_after_first": {k: statistics.median(v[1:]) for k, v in parts.items()},
+          "parts_ms": parts,
+          "inside_one_step": {k: {"calls": c, "ms": ms} for k, (c, ms) in in_step.items()},
+          "conv_kernel_calls_alone_per_step_ms": grad_sum,
+          "host_dispatch_ms_of_one_step": host_dispatch_ms, "that_step_ms": dispatched_step_ms,
+          "note": "inside_one_step brackets each call with events in the running step "
+                  "(wrapper work included); conv_kernel_calls_alone is 7 x the sum of "
+                  "the 28 shapes timed back to back in conv_grad_timing; "
+                  "host_dispatch_ms is the host clock until train_step returned, "
+                  "the card still working"})
+    del X, Y, final, state0
 
     # ---- 7. mesh kernels vs their plain versions, on a real frame's rays ----
     # One 800x800 frame of each mesh scene is rendered with each BVH
@@ -553,17 +974,6 @@ def main():
     # whole frame, each as elapsed time between CUDA events and as the
     # card's busy time in it (the profiler's sum of kernel times); and the
     # frame under the other BVH intersection than the router's choice.
-    def busy_ms(fn):
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        total_us = sum(getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0))
-                       for e in prof.key_averages())
-        require(total_us > 0, "the profiler reported device time")
-        return total_us / 1e3
-
     for name, sc in mesh_scenes.items():
         routed = "v2p" if name == "blob" else "binned"
         whole = recorded[name][routed][routed]
@@ -588,7 +998,16 @@ def main():
                                   + mesh_summary["mesh_binned_pair"]["ms"]),
               "host_reads_of_fits_per_frame": len(whole) if routed == "binned" else 0})
 
-    # ---- 11. summary ----
+    # ---- 11. the card's busy time in one train step (profiler), last ----
+    step_busy = busy_ms(lambda: trainer.train_step(state, fixed_x, fixed_y, topt, mopt))
+    emit({"phase": "train_step_busy", "card": smi, "device_busy_ms_in_one_step": step_busy,
+          "step_ms_median_after_first": step_median,
+          "device_idle_share": max(0.0, 1.0 - step_busy / step_median),
+          "note": "busy = the profiler's sum of kernel times over one step; the "
+                  "profiler slows the host, so busy can exceed the unprofiled step"})
+    del fixed_x, fixed_y, state
+
+    # ---- 12. summary ----
     summary = {"kernels": [
         {"name": "render_megakernel", "route": "cuda",
          "source": "ai_path_tracer_denoiser_tpu_torch/csrc/render_megakernel.cu",
@@ -600,9 +1019,16 @@ def main():
          "source": "ai_path_tracer_denoiser_tpu_torch/csrc/conv3x3_act.cu",
          "replaces": "ai_path_tracer_denoiser_tpu/models/conv_kernel.py:287",
          "launches": launches["conv3x3_act"], "max_abs_err": k2_err,
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
-         "bound_by": "bytes" if k2["bytes_s"] >= k2["ops_s"] else "operations",
-         "library_ms": k2["library_ms"]},
+         "ms": conv_sum["ms"], "plain_ms": conv_sum["plain_ms"],
+         "bound_ms": conv_sum["bound_ms"], "bound_by": conv_bound_by,
+         "library_ms": conv_sum["library_ms"], **k2_train},
+        {"name": "conv3x3_rows", "route": "cuda",
+         "source": "ai_path_tracer_denoiser_tpu_torch/csrc/conv3x3_rows.cu",
+         "replaces": "ai_path_tracer_denoiser_tpu/models/conv_kernel.py:120",
+         "launches": rows_launches, "max_abs_err": k3_err,
+         "ms": conv_sum["rows_ms"], "plain_ms": conv_sum["rows_plain_ms"],
+         "bound_ms": conv_sum["bound_ms"], "bound_by": conv_bound_by,
+         "library_ms": conv_sum["library_ms"]},
     ] + [
         {"name": kname, "route": "cuda",
          "source": f"ai_path_tracer_denoiser_tpu_torch/csrc/{kname}.cu",

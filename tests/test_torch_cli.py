@@ -85,10 +85,118 @@ def test_interactive_cli_matches_jax(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--serve=8000", "--parity-denoise"])
 def test_unported_options_raise(flag, tmp_path):
+    """``--serve`` still waits for utils/preview.py and says so;
+    ``--parity-denoise`` is ported now and runs the train graph in eval mode
+    (held against the folded path below)."""
+    from ai_path_tracer_denoiser_tpu_torch.app.cli import main
+    argv = ["interactive", "scenes/cornell_box.txt", "--device", "cpu", "--res", "32",
+            "--frames", "1", flag, "--out-dir", str(tmp_path)]
+    if flag == "--parity-denoise":
+        assert main(argv)[0]["finite"]
+    else:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            main(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["datagen", "scenes/cornell_box.txt", "--out-dir", "unused", "--variants", "2"],
+    ["train", "--data-dir", "unused", "--data-parallel"]])
+def test_unported_commands_raise(argv):
     from ai_path_tracer_denoiser_tpu_torch.app.cli import main
     with pytest.raises(NotImplementedError, match="not ported"):
-        main(["interactive", "scenes/cornell_box.txt", "--device", "cpu",
-              "--frames", "1", flag, "--out-dir", str(tmp_path)])
+        main(argv + ["--device", "cpu"])
+
+
+def test_parity_denoise_equals_the_folded_path(tmp_path):
+    """``interactive --parity-denoise`` (the train graph in eval mode,
+    bfloat16 convs, float32 norms) against the BN-folded bfloat16 deployment
+    path, with both conv impls, on the same 2 frames: relative L2 < 3e-2
+    (the two graphs round to bfloat16 at different places)."""
+    from ai_path_tracer_denoiser_tpu_torch.app.cli import main
+    outs = {}
+    for name, extra in (("folded", []), ("rows", ["--conv-impl", "pallas"]),
+                        ("parity", ["--parity-denoise"])):
+        recs = main(["interactive", "scenes/cornell_box.txt", "--device", "cpu",
+                     "--res", "48", "--frames", "2", "--model", str(MODEL),
+                     "--out-dir", str(tmp_path / name), "--save-arrays"] + extra)
+        outs[name] = [np.load(r["path"][:-len(".png")] + "_denoised.npy") for r in recs]
+        assert all(r["finite"] for r in recs)
+        assert outs[name][0].shape == (48, 48, 3)        # padded to 64, cropped back
+    for a, b, c in zip(outs["folded"], outs["parity"], outs["rows"]):
+        assert np.linalg.norm(b - a) / np.linalg.norm(a) < 3e-2
+        assert np.linalg.norm(c - a) / np.linalg.norm(a) < 2e-2
+
+
+def test_train_export_eval_cli_on_cpu(tmp_path):
+    """datagen -> train (host loader, then resumed with the corpus on the
+    device) -> export -> eval -> interactive, through ``main`` on the CPU:
+    32x32 crops of a 64x64 corpus, 7-frame windows, the reference widths."""
+    from ai_path_tracer_denoiser_tpu.models import load_model as jax_load_model
+    from ai_path_tracer_denoiser_tpu_torch.app.cli import main
+    from ai_path_tracer_denoiser_tpu_torch.train import checkpoint_epoch, load_checkpoint
+    data, models = str(tmp_path / "data"), str(tmp_path / "models")
+    main(["datagen", "scenes/cornell_box.txt", "--platform", "cpu", "--res", "64",
+          "--frames", "8", "--movs", "1", "--gt-spp", "2", "--out-dir", data])
+    assert len(os.listdir(os.path.join(data, "input"))) == 8
+    common = ["train", "--data-dir", data, "--model-dir", models, "--log-dir",
+              str(tmp_path / "logs"), "--crop-size", "32", "--batch-size", "4",
+              "--platform", "cpu", "--log-every", "1"]
+    state = main(common + ["--epochs", "1"])
+    assert state.step == 2 and state.params["enc1"]["conv1"]["w"].shape == (3, 3, 10, 32)
+    assert sorted(os.listdir(models)) == ["model_0.npz", "model_final.npz"]
+    assert checkpoint_epoch(os.path.join(models, "model_0.npz")) == 1
+    with open(tmp_path / "logs" / "metrics.jsonl") as f:
+        lines = [line for line in f]
+    assert len(lines) == 2 and '"hfen"' in lines[0]
+    # resume: 'final' extends from the step count; epoch 1 of 2 remains
+    resumed = main(common + ["--epochs", "2", "--resume", "--device-data"])
+    assert resumed.step == 4
+    final = os.path.join(models, "model_final.npz")
+    assert load_checkpoint(final, device="cpu").step == 4
+    deploy = str(tmp_path / "deploy.npz")
+    assert main(["export", final, "--out", deploy]) == deploy
+    jp, _, meta = jax_load_model(deploy)
+    assert meta == {"widths": [32, 43, 57, 76, 101], "norm": "batch"}
+    np.testing.assert_array_equal(np.asarray(jp["dec1"]["conv2"]["w"]),
+                                  resumed.params["dec1"]["conv2"]["w"].numpy())
+    for model in (deploy, final):
+        strips = main(["eval", "--data-dir", data, "--model", model, "--out-dir",
+                       str(tmp_path / "eval"), "--max-sequences", "1", "--device", "cpu"])
+        assert len(strips) == 7 and strips[0].shape == (64, 192, 3)
+        assert strips[0].dtype == np.uint8
+    assert any(n.endswith(".gif") or n.startswith("strip_")
+               for n in os.listdir(tmp_path / "eval"))
+    recs = main(["interactive", "scenes/cornell_box.txt", "--device", "cpu", "--res", "32",
+                 "--frames", "1", "--model", deploy, "--out-dir", str(tmp_path / "frames")])
+    assert recs[0]["finite"]
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port imports in an interpreter where ``jax``,
+    ``optax`` and the JAX package cannot be imported at all."""
+    code = """
+import importlib, importlib.abc, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "optax", "flax", "ai_path_tracer_denoiser_tpu")
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked for this test: " + name)
+sys.meta_path.insert(0, Block())
+import ai_path_tracer_denoiser_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+assert len(names) > 30 and pkg.__name__ + ".train.trainer" in names, names
+assert not any(n.split(".")[0] in BLOCKED for n in sys.modules)
+print("imported", len(names))
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "imported" in proc.stdout
 
 
 def test_interactive_cli_renders_bvh_mesh(tmp_path):
@@ -127,5 +235,14 @@ def test_cli_mesh_flags_reach_the_options():
 
 def test_cli_defaults_to_cuda():
     from ai_path_tracer_denoiser_tpu_torch.app.cli import build_parser
-    args = build_parser().parse_args(["interactive", "scenes/cornell_box.txt"])
-    assert args.device == "cuda"
+    parser = build_parser()
+    for argv in (["interactive", "scenes/cornell_box.txt"],
+                 ["render", "scenes/cornell_box.txt"],
+                 ["datagen", "scenes/cornell_box.txt", "--out-dir", "d"],
+                 ["train", "--data-dir", "d"],
+                 ["eval", "--data-dir", "d", "--model", "m.npz"]):
+        assert parser.parse_args(argv).device == "cuda", argv
+        assert parser.parse_args(argv + ["--platform", "cpu"]).device == "cpu"
+    args = parser.parse_args(["train", "--data-dir", "d"])
+    assert (args.epochs, args.lr, args.crop_size, args.batch_size) == (100, 1e-3, 256, 1)
+    assert parser.parse_args(["interactive", "s.txt"]).conv_impl == "auto"

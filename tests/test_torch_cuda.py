@@ -27,8 +27,8 @@ import numpy as np
 import pytest
 import torch
 
-from ai_path_tracer_denoiser_tpu_torch.config import RenderOptions
-from ai_path_tracer_denoiser_tpu_torch.models import conv_kernel
+from ai_path_tracer_denoiser_tpu_torch.config import ModelOptions, RenderOptions, TrainOptions
+from ai_path_tracer_denoiser_tpu_torch.models import conv_kernel, layers
 from ai_path_tracer_denoiser_tpu_torch.ops.bvh import build_mesh_bvh
 from ai_path_tracer_denoiser_tpu_torch.ops.vec3 import Vec3
 from ai_path_tracer_denoiser_tpu_torch.render import (assemble_gbuffer, cuda_backend,
@@ -73,6 +73,20 @@ def test_cpu_tensors_take_the_plain_versions():
     torch.testing.assert_close(
         y, conv_kernel.conv3x3_act_plain(x.bfloat16(), wt, b, 0.1, aff))
     assert (cuda_backend.KERNEL.launches, conv_kernel.KERNEL.launches) == before
+    # the row-band conv and the conv's autograd: plain versions too, no launch
+    rows_before = conv_kernel.ROWS_KERNEL.launches
+    y = conv_kernel.conv3x3_act(x.bfloat16(), wt, b, 0.1, aff)
+    assert torch.equal(y, conv_kernel.conv3x3_act_rows_plain(x.bfloat16(), wt, b, 0.1, aff))
+    xs = x[None].clone().requires_grad_(True)
+    ws = wt.clone().requires_grad_(True)
+    out = layers.Conv3x3Function.apply(xs, ws)
+    g = torch.ones_like(out)
+    out.backward(g)
+    dx, dw = conv_kernel.conv3x3_backward_plain(x[None], wt, g)
+    torch.testing.assert_close(xs.grad, dx, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(ws.grad, dw, rtol=1e-4, atol=1e-4)
+    assert (conv_kernel.KERNEL.launches, conv_kernel.ROWS_KERNEL.launches) == (before[1],
+                                                                               rows_before)
 
 
 def _soup_bvh(n_faces, seed):
@@ -122,13 +136,55 @@ def test_mesh_wrappers_take_the_plain_versions_on_cpu():
         mesh_kernel_v2p.table_ptr(bvh.faces_packed[:, :18], 19, tc.device)
 
 
-def test_entry_points_default_to_the_card():
+def test_entry_points_default_to_the_card(tmp_path):
+    """Rendering, training and loading default to the card and raise where
+    there is none; none of them drops to the CPU on its own."""
+    from ai_path_tracer_denoiser_tpu_torch.app.cli import main
+    from ai_path_tracer_denoiser_tpu_torch.models import train_state_from_numpy
+    from ai_path_tracer_denoiser_tpu_torch.train import (init_train_state, load_checkpoint,
+                                                         load_device_dataset, save_checkpoint)
+    small = ModelOptions(widths=(4, 4, 4, 4, 4))
+    cpu_state = init_train_state(torch.Generator().manual_seed(0), small, device="cpu")
+    ckpt = save_checkpoint(str(tmp_path), cpu_state, 0)
+    np.save(tmp_path / "0_0_0_0000.npy", np.zeros((8, 8, 10), np.float32))
+    np.save(tmp_path / "gt_0_0_0_0000.npy", np.zeros((8, 8, 3), np.float32))
+
+    class OneFrame:
+        def __len__(self):
+            return 1
+
+        def path_of(self, index, gt=False):
+            return str(tmp_path / ("gt_0_0_0_0000.npy" if gt else "0_0_0_0000.npy"))
+
+        def window_start(self, index):
+            return 0
+
+    calls = {
+        "resolve_device": lambda: resolve_device(None),
+        "init_train_state": lambda: init_train_state(torch.Generator().manual_seed(0), small),
+        "load_checkpoint": lambda: load_checkpoint(ckpt),
+        "train_state_from_numpy": lambda: train_state_from_numpy(
+            {"w": np.zeros(2, np.float32)}, {}, None, 0, 1e-3),
+        "load_device_dataset": lambda: load_device_dataset(OneFrame())[0],
+        "cli datagen": lambda: main(["datagen", str(REPO / "scenes" / "cornell_box.txt"),
+                                     "--res", "32", "--frames", "1", "--movs", "1",
+                                     "--gt-spp", "1", "--out-dir", str(tmp_path / "d")]),
+        "cli train": lambda: main(["train", "--data-dir", str(tmp_path / "d"), "--model-dir",
+                                   str(tmp_path / "m"), "--log-dir", str(tmp_path / "l")]),
+        "cli eval": lambda: main(["eval", "--data-dir", str(tmp_path / "d"), "--model", ckpt]),
+    }
     if torch.cuda.is_available():
-        assert resolve_device(None).type == "cuda"
+        assert calls["resolve_device"]().type == "cuda"
+        state = calls["init_train_state"]()
+        assert state.params["enc1"]["conv1"]["w"].device.type == "cuda"
+        assert calls["load_checkpoint"]().params["enc1"]["conv1"]["w"].device.type == "cuda"
+        assert calls["load_device_dataset"]().device.type == "cuda"
     else:
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            resolve_device(None)
+        for name, call in calls.items():
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                call()
     assert resolve_device("cpu").type == "cpu"
+    assert TrainOptions().bf16_compute
 
 
 @pytest.fixture
@@ -179,7 +235,7 @@ def test_conv_kernel_matches_plain_on_card(cuda_device, h, w, c, co, affine):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(), rtol=rtol, atol=atol)
     with pytest.raises(ValueError):
-        conv_kernel.conv3x3_act_chw(xs.float(), ws, bs, 0.1)
+        conv_kernel.conv3x3_act_chw(xs.half(), ws, bs, 0.1)
 
 
 @pytest.mark.cuda
@@ -227,3 +283,125 @@ def test_mesh_scene_renders_through_the_kernels_on_card(cuda_device):
         torch.cuda.synchronize()
         assert kernel.launches > launches
         assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,co", [(0, 25, 25, 202, 101), (2, 37, 53, 43, 57),
+                                        (4, 64, 64, 3, 32), (1, 13, 7, 5, 7)])
+def test_conv_kernels_float32_batched_and_row_band_on_card(cuda_device, n, h, w, c, co):
+    """The tile kernel with float32 input and a batch, and the row-band kernel
+    in both dtypes and on a pre-padded input, against their plain versions."""
+    x, wt, b, aff = _conv_inputs(h, w, c, co, seed=c)
+    if n:
+        x = torch.stack([x.roll(i, 0) for i in range(n)])
+    b, wt = b.to(cuda_device), wt.to(cuda_device)
+    aff = {k: v.to(cuda_device) for k, v in aff.items()}
+    for dtype, rtol, atol in ((torch.float32, 1e-3, 1e-3), (torch.bfloat16, 1.6e-2, 1e-2)):
+        xs = x.to(cuda_device, dtype)
+        before = (conv_kernel.KERNEL.launches, conv_kernel.ROWS_KERNEL.launches)
+        pairs = [(conv_kernel.conv3x3_act_chw(xs, wt, b, 0.1, aff),
+                  conv_kernel.conv3x3_act_plain(xs, wt.to(dtype), b, 0.1, aff)),
+                 (conv_kernel.conv3x3_act(xs, wt, b, 0.1, aff),
+                  conv_kernel.conv3x3_act_rows_plain(xs, wt.to(dtype), b, 0.1, aff)),
+                 (conv_kernel.conv3x3_act(conv_kernel.conv_input_pad(xs).contiguous(), wt, b,
+                                          1.0, None, pre_padded=True, width=w),
+                  conv_kernel.conv3x3_act_rows_plain(xs, wt.to(dtype), b, 1.0, None))]
+        torch.cuda.synchronize()
+        assert (conv_kernel.KERNEL.launches, conv_kernel.ROWS_KERNEL.launches) == (
+            before[0] + 1, before[1] + 2)
+        for got, want in pairs:
+            assert got.dtype == dtype and got.shape == want.shape
+            np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                                       rtol=rtol, atol=atol)
+    with pytest.raises(ValueError):
+        conv_kernel.conv3x3_act(xs.half(), wt, b, 0.1)
+    with pytest.raises(ValueError):
+        conv_kernel.conv3x3_act_chw(xs.transpose(-2, -3), wt, b, 0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv_autograd_runs_through_the_kernel_on_card(cuda_device, dtype):
+    """Forward and dgrad launch the tile kernel (2 launches; 1 when x needs
+    no gradient) and agree with the plain backward pass: float32 within
+    1e-3 + 1e-3|p|, bfloat16 within one rounding step of the largest entry."""
+    x, wt, _, _ = _conv_inputs(40, 24, 43, 57, seed=2)
+    x = torch.stack([x, x.flip(0)]).to(cuda_device, dtype).requires_grad_(True)
+    w = wt.to(cuda_device, dtype).requires_grad_(True)
+    before = conv_kernel.KERNEL.launches
+    y = layers.Conv3x3Function.apply(x, w)
+    g = torch.randn(y.shape, device=cuda_device, generator=torch.Generator(cuda_device).manual_seed(0))
+    dx, dw = torch.autograd.grad(y, (x, w), g)
+    torch.cuda.synchronize()
+    assert conv_kernel.KERNEL.launches == before + 2
+    assert y.dtype == torch.float32 and dx.dtype == dtype and dw.dtype == dtype
+    want_dx, want_dw = conv_kernel.conv3x3_backward_plain(x.detach(), w.detach(), g.to(dtype))
+    rtol, atol = (1e-3, 1e-3) if dtype == torch.float32 else (1.6e-2, 1e-2)
+    for got, want in ((dx, want_dx), (dw, want_dw)):
+        scale = float(want.abs().max())
+        np.testing.assert_allclose(got.float().cpu().numpy() / scale, want.cpu().numpy() / scale,
+                                   rtol=rtol, atol=atol)
+    before = conv_kernel.KERNEL.launches
+    torch.autograd.grad(layers.Conv3x3Function.apply(x.detach(), w), (w,), g)
+    assert conv_kernel.KERNEL.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_broken_build_raises_on_card(cuda_device, tmp_path, monkeypatch):
+    """A kernel that does not build raises from its wrapper on a CUDA
+    tensor; the wrapper does not fall back to the plain version."""
+    from ai_path_tracer_denoiser_tpu_torch.utils import cuda_build
+    (tmp_path / "broken.cu").write_text("this is not CUDA C++\n")
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(tmp_path))
+    broken = cuda_build.CudaKernel("broken", "broken.cu")
+    monkeypatch.setattr(conv_kernel, "ROWS_KERNEL", broken)
+    x, wt, b, _ = _conv_inputs(8, 8, 4, 4, seed=0)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        conv_kernel.conv3x3_act(x.to(cuda_device), wt, b, 0.1)
+    assert broken.launches == 0
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda_device):
+    """One float32 train step at small widths on the card (every conv through
+    the kernel forward and backward) against the same step on the CPU (plain
+    versions): loss rtol 1e-4; 3 x 28 forward and 3 x 28 - 3 dgrad launches."""
+    from ai_path_tracer_denoiser_tpu_torch.train import init_train_state, train_step
+    mopt, topt = ModelOptions(widths=(8, 8, 8, 8, 8)), TrainOptions(bf16_compute=False)
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(r.normal(size=(3, 2, 64, 64, 10)).astype(np.float32))
+    y = torch.from_numpy((r.normal(size=(3, 2, 64, 64, 3)) * 0.1 + 0.5).astype(np.float32))
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        state = init_train_state(torch.Generator().manual_seed(0), mopt, topt, device=dev)
+        before = conv_kernel.KERNEL.launches
+        state, metrics = train_step(state, x.to(dev), y.to(dev), topt, mopt)
+        losses[str(dev)] = float(metrics["total"])
+        launched = conv_kernel.KERNEL.launches - before
+        assert launched == (0 if dev == "cpu" else 3 * 28 + 3 * 28 - 3)
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fit_feeds_the_card_from_host_batches(cuda_device):
+    """The host loader path on the card: numpy batches go up through pinned
+    memory one batch ahead (bfloat16 under bfloat16 compute), the state
+    stays on the card and every conv launches the kernel."""
+    from ai_path_tracer_denoiser_tpu_torch.train import fit, init_train_state
+    mopt, topt = ModelOptions(widths=(8, 8, 8, 8, 8)), TrainOptions(checkpoint_every_epochs=1)
+    state = init_train_state(torch.Generator().manual_seed(0), mopt, topt, device=cuda_device)
+    r = np.random.default_rng(0)
+
+    def data(epoch):
+        for _ in range(3):
+            yield (r.normal(size=(2, 1, 32, 32, 10)).astype(np.float32),
+                   r.uniform(0, 1, (2, 1, 32, 32, 3)).astype(np.float32))
+
+    before = conv_kernel.KERNEL.launches
+    saved = []
+    state = fit(state, data, topt, epochs=1, log_every=1, model_options=mopt,
+                checkpoint_fn=lambda s, e: saved.append(e))
+    torch.cuda.synchronize()
+    assert state.step == 3 and saved == [0, "final"]
+    assert state.params["enc1"]["conv1"]["w"].device.type == "cuda"
+    assert conv_kernel.KERNEL.launches - before == 3 * (2 * 28 + 2 * 28 - 2)

@@ -25,9 +25,9 @@ from ai_path_tracer_denoiser_tpu.models import init_hidden as jax_init_hidden
 from ai_path_tracer_denoiser_tpu.models import load_model as jax_load_model
 from ai_path_tracer_denoiser_tpu_torch.config import ModelOptions
 from ai_path_tracer_denoiser_tpu_torch.models import (
-    apply_frame_fast, apply_frame_fast_padded, init_autoencoder, init_hidden,
-    load_model, params_from_numpy, prepare_inference)
-from ai_path_tracer_denoiser_tpu_torch.models import conv_kernel
+    apply_frame_fast, apply_frame_fast_padded, apply_sequence_fast, init_autoencoder,
+    init_hidden, load_model, params_from_numpy, prepare_inference)
+from ai_path_tracer_denoiser_tpu_torch.models import conv_kernel, inference
 from ai_path_tracer_denoiser_tpu_torch.models.inference import _conv_act
 
 torch.set_num_threads(2)
@@ -151,3 +151,39 @@ def test_random_init_tree_matches_jax_shapes():
         assert tuple(node.shape) == leaf.shape
     assert set(ts) == set(js)
 
+
+
+def test_conv_impl_names_route_to_the_two_kernels(monkeypatch):
+    """"pallas" goes through ``conv3x3_act`` (the row-band kernel's wrapper),
+    every other name through ``conv3x3_act_chw``, whatever the height."""
+    seen = []
+    for name in ("conv3x3_act", "conv3x3_act_chw"):
+        orig = getattr(inference, name)
+        monkeypatch.setattr(inference, name, lambda *a, _n=name, _o=orig, **k:
+                            seen.append(_n) or _o(*a, **k))
+    x, wt, b, _ = _conv_inputs(6, 10, 4, 5, seed=1)         # a height no band of 8 divides
+    conv = {"w": torch.from_numpy(wt), "b": torch.from_numpy(b)}
+    outs = {impl: _conv_act(conv, torch.from_numpy(x)[None], 0.1, torch.float32, impl=impl)
+            for impl in inference.CONV_IMPLS}
+    assert seen == ["conv3x3_act" if impl == "pallas" else "conv3x3_act_chw"
+                    for impl in inference.CONV_IMPLS]
+    for impl, y in outs.items():
+        assert y.shape == (1, 6, 10, 5)
+        np.testing.assert_allclose(y.numpy(), outs["auto"].numpy(), rtol=1e-4, atol=1e-5)
+
+
+def test_whole_network_agrees_between_conv_impls_and_sequence_helper():
+    params, bn_state, _ = load_model(MODEL, device="cpu")
+    mopts = ModelOptions()
+    folded = prepare_inference(params, bn_state, mopts, compute_dtype=torch.float32)
+    frames = _frames(2, 32, 32, seed=4)
+    x_seq = torch.from_numpy(np.stack(frames))                         # (T, 1, H, W, 10)
+    ys = {impl: apply_sequence_fast(folded, x_seq, mopts, torch.float32, conv_impl=impl)
+          for impl in ("pallas2", "pallas")}
+    assert ys["pallas"].shape == (2, 1, 32, 32, 3)
+    np.testing.assert_allclose(ys["pallas"].numpy(), ys["pallas2"].numpy(), rtol=1e-3, atol=1e-4)
+    hidden = init_hidden(1, 32, 32, mopts, dtype=torch.float32)
+    for t, x in enumerate(frames):
+        y, hidden = apply_frame_fast(folded, torch.from_numpy(x), hidden, mopts,
+                                     compute_dtype=torch.float32, conv_impl="pallas2")
+        assert torch.equal(y, ys["pallas2"][t])
