@@ -16,7 +16,12 @@ kernel under ``csrc/`` (built with nvcc for sm_90a at first use):
     (JAX: models/conv_kernel.py),
   * ``render/mesh_kernel_v2p.py``, ``render/mesh_binned.py`` +
     ``csrc/mesh_*.cu`` — the mesh BVH traversal, bin subscription and pair
-    intersection (JAX: render/mesh_kernel_v2p.py, render/mesh_binned.py).
+    intersection (JAX: render/mesh_kernel_v2p.py, render/mesh_binned.py),
+  * ``render/mesh_kernel.py``, ``render/mesh_kernel_v3.py`` +
+    ``csrc/mesh_bvh_v2.cu``, ``csrc/mesh_bvh_v3.cu`` — the tile-gated and
+    the front-to-back traversal (JAX modules of the same names),
+  * ``tools/mm_feasibility.py`` + ``csrc/mm_visit_*.cu`` — the visit-cost
+    probe's scalar and tensor-core visit (JAX: tools/exp_mm_feasibility.py).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every kernel wrapper runs its plain PyTorch version.

@@ -8,6 +8,7 @@
   train        train the denoiser on such a corpus
   eval         [input | prediction | ground truth] strips
   export       checkpoint -> deployable model artifact
+  bench        per-scene timing harness: N iterations of each scene given
 
 All run on ``--device cuda`` (the default; ``--platform`` is the same
 flag under the JAX CLI's name) or ``--device cpu``; on the card the render
@@ -15,13 +16,15 @@ goes through the megakernel (scenes with a mesh over 64 faces: through the
 plain wavefront with the mesh BVH kernels), the denoiser's convs through
 the fused conv kernels, and training's convs through the tile kernel
 forward and backward.  Not ported yet (ROADMAP queue A): ``randomize``,
-``preprocess``, ``bench``, ``datagen --variants``, ``train
---data-parallel`` and ``interactive --serve``.
+``preprocess``, ``datagen --variants``, ``train --data-parallel`` and
+``interactive --serve``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import json
 import os
 import time
 
@@ -58,7 +61,8 @@ def _load_scene_scaled(path, device, res=None, res_wh=None):
     return scene
 
 
-_FLAGS = ("stream_compaction", "ray_culling", "antialias", "denoise",
+_FLAGS = ("stream_compaction", "sort_material", "cache_first_bounce",
+          "ray_culling", "antialias", "motion_blur", "denoise",
           "mesh_normal_view", "fresnels", "dielectric")
 
 
@@ -357,6 +361,38 @@ def cmd_export(args):
     return args.out
 
 
+def cmd_bench(args):
+    """Per-scene timing harness (the reference's cornell_timing scenes and
+    TIME flag).  Per scene: a 2-iteration warm-up render, then ``--iters``
+    iterations on the host clock, the device drained before and after.
+    Returns {scene file: milliseconds}."""
+    from ..render import render
+    from ..utils.debug import profile_trace
+    device = resolve_device(args.device)
+
+    def drain():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    results = {}
+    for scene_path in args.scenes:
+        scene = _load_scene_scaled(scene_path, device, args.res, args.res_wh)
+        options = _render_options(args)
+        render(scene, options, num_iterations=2)
+        drain()
+        ctx = (profile_trace(args.profile) if args.profile
+               else contextlib.nullcontext())
+        with ctx:
+            t0 = time.perf_counter()
+            render(scene, options, num_iterations=args.iters)
+            drain()
+            dt = (time.perf_counter() - t0) * 1e3
+        results[os.path.basename(scene_path)] = round(dt, 1)
+        print(f"{scene_path}: {args.iters} iterations in {dt:.1f} ms")
+    print(json.dumps(results))
+    return results
+
+
 def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
@@ -373,8 +409,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--device", "--platform", dest="device",
                         choices=("cuda", "cpu"), default="cuda")
 
-    def add_common(sp):
-        sp.add_argument("scene", help="scene .txt file")
+    def add_common(sp, scene=True):
+        if scene:
+            sp.add_argument("scene", help="scene .txt file")
         add_device(sp)
         sp.add_argument("--res", type=int, default=None)
         sp.add_argument("--res-wh", type=int, nargs=2, default=None,
@@ -396,8 +433,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="with octant sort, origin-cell Morton major "
                              "key over N^3 cells (0 = octant only)")
         sp.add_argument("--mesh-kernel-lanes", type=int, default=None,
-                        help="the TPU kernels' rays per tile; accepted, no "
-                             "effect on the CUDA kernels")
+                        help="rays per tile (CUDA block) of --mesh-kernel-impl "
+                             "v2 on secondary bounces: a multiple of 128 up "
+                             "to 1024")
         sp.add_argument("--mesh-kernel-impl",
                         choices=("auto", "v2", "v2p", "v2s", "v3", "binned"),
                         default=None,
@@ -490,6 +528,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="norm layer the checkpoint was trained with "
                          "(unrecoverable from shapes; written to meta)")
     sp.set_defaults(fn=cmd_export)
+
+    sp = sub.add_parser("bench", help="per-scene timing harness")
+    add_common(sp, scene=False)
+    sp.add_argument("scenes", nargs="+")
+    sp.add_argument("--iters", type=int, default=500)
+    sp.add_argument("--profile", default=None, metavar="DIR",
+                    help="write a torch.profiler trace of the timed run")
+    sp.set_defaults(fn=cmd_bench)
     return p
 
 

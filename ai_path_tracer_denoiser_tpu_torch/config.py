@@ -1,9 +1,6 @@
 """Runtime configuration (counterpart of ai_path_tracer_denoiser_tpu/config.py).
 
-Same three frozen dataclasses and the same field meanings.  Options
-whose code path is not ported yet (material sort, first-bounce cache,
-motion blur) are kept as fields and the renderer raises
-``NotImplementedError`` when one is switched on.
+Same three frozen dataclasses and the same field meanings.
 """
 from __future__ import annotations
 
@@ -19,8 +16,12 @@ class RenderOptions:
     # The plain wavefront stops its bounce loop once every path is dead;
     # the megakernel ends each thread's path as soon as it dies.
     stream_compaction: bool = True
-    sort_material: bool = False        # not yet ported (ROADMAP queue B)
-    cache_first_bounce: bool = False   # not yet ported (ROADMAP queue B)
+    # Stable-sort the path state by hit material after each shade
+    # (pathtrace.cu:508-510).  A pure permutation: the image does not change.
+    sort_material: bool = False
+    # Reuse iteration 1's depth-0 intersection in later iterations
+    # (pathtrace.cu:466-476); needs antialias and motion_blur off.
+    cache_first_bounce: bool = False
     # Gate per-ray triangle loops on a ray/AABB test (pathtrace.cu:23, 258).
     ray_culling: bool = True
     # Send a mesh that carries a cluster hierarchy (ops/bvh.py, built for
@@ -31,9 +32,10 @@ class RenderOptions:
     # A pure permutation: the image does not change.  Ignored by the binned
     # pipeline, which packs rays itself.
     mesh_octant_sort: bool = True
-    # The TPU kernels' rays per tile for secondary bounces, their
-    # descent-gating granule.  Kept for the JAX package's interface; the
-    # CUDA kernels gate per ray, so it has no effect.
+    # Rays per tile of the tile-gated traversal ("v2") on secondary bounces:
+    # its descent-gating granule and CUDA block size, a multiple of 128 up
+    # to 1024.  The other intersections gate per ray, per 128-ray subtile or
+    # not at all and ignore it.
     mesh_kernel_lanes: int = 1024
     # With mesh_octant_sort, also sort by an origin-cell Morton major key
     # over mesh_sort_cells^3 cells of the batch's own origin bounds
@@ -41,14 +43,16 @@ class RenderOptions:
     mesh_sort_cells: int = 8
     # BVH intersection: "auto" = "binned" for meshes of 64 bins (of 256
     # faces) or more, else "v2p"; "v2p"/"v2s" = per-ray traversal
-    # (render/mesh_kernel_v2p.py, one kernel serves both); "binned" = the
-    # pair pipeline (render/mesh_binned.py).  All give the dense scan's
-    # result.  "v2" and "v3" are not ported yet (ROADMAP queue B).
+    # (render/mesh_kernel_v2p.py, one kernel serves both); "v2" = index-order
+    # traversal gated per tile of mesh_kernel_lanes rays
+    # (render/mesh_kernel.py); "v3" = front-to-back traversal per 128-ray
+    # subtile (render/mesh_kernel_v3.py); "binned" = the pair pipeline
+    # (render/mesh_binned.py).  All give the dense scan's result.
     mesh_kernel_impl: str = "auto"
 
     # --- effects (pathtrace.cu:25-28) ---
     antialias: bool = True            # sub-pixel jitter, pathtrace.cu:168-173
-    motion_blur: bool = False         # not yet ported (ROADMAP queue B)
+    motion_blur: bool = False         # move geoms by their velocity, pathtrace.cu:441
     denoise: bool = True              # fill + emit the 10-channel G-buffer
     # --- shading variants (interactions.h:4-6) ---
     mesh_normal_view: bool = False    # debug: replace material color by |normal|
@@ -93,6 +97,10 @@ class RenderOptions:
         if self.mesh_kernel_impl not in ("auto", "v2", "v2p", "v2s", "v3",
                                          "binned"):
             raise ValueError(f"mesh_kernel_impl={self.mesh_kernel_impl!r}")
+        if (self.mesh_kernel_lanes <= 0 or self.mesh_kernel_lanes % 128
+                or self.mesh_kernel_lanes > 1024):
+            raise ValueError(f"mesh_kernel_lanes={self.mesh_kernel_lanes}: a "
+                             "multiple of 128, at most 1024")
         if self.backend not in ("auto", "xla", "pallas"):
             raise ValueError(f"backend={self.backend!r}")
         if self.pallas_geometry not in ("baked", "operand"):

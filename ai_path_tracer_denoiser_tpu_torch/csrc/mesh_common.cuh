@@ -1,8 +1,9 @@
-// Shared device code of the mesh kernels (mesh_bvh_v2p.cu,
-// mesh_binned_phase1.cu, mesh_binned_pair.cu): the slab test that gates a
-// hierarchy node and the one-sided Moller-Trumbore test, both written in
-// the operation order of their plain PyTorch versions
-// (render/mesh_kernel_v2p.py:_slab_live, ops/intersect.py:_triangle_t).
+// Shared device code of the mesh kernels (mesh_bvh_v2p.cu, mesh_bvh_v2.cu,
+// mesh_bvh_v3.cu, mesh_binned_phase1.cu, mesh_binned_pair.cu,
+// mm_visit_vpu.cu): the slab test that gates a hierarchy node and the
+// one-sided Moller-Trumbore test, both written in the operation order of
+// their plain PyTorch versions (render/mesh_kernel_v2p.py:_slab_live,
+// ops/intersect.py:_triangle_t), and what the traversals do with a winner.
 // The sources are built with -fmad=false and without fast math, so every
 // operation rounds as the separate PyTorch kernels of the plain versions do.
 #pragma once
@@ -43,13 +44,14 @@ __device__ __forceinline__ V3 normalized_safe(V3 a) {
   return scale(a, n2 > 0.0f ? rsqrtf(n2) : 1.0f);
 }
 
-// A ray against one AABB row: does it hit the box, and is the entry
-// closer than t_run?  The NaN rule is written out, because it decides the
-// result: a NaN plane distance (0 * inf: the origin on a box face with a
-// zero direction component) makes that axis unbounded, lo = -inf and
-// hi = +inf, where fminf/fmaxf alone would drop the NaN and keep the other
-// plane's distance.
-__device__ __forceinline__ bool slab_live(const float* row, V3 o, V3 inv, float t_run) {
+// A ray against one AABB row: the interval [tmin, tmax] in which it overlaps
+// the box.  The NaN rule is written out, because it decides the result: a
+// NaN plane distance (0 * inf: the origin on a box face with a zero
+// direction component) makes that axis unbounded, lo = -inf and hi = +inf,
+// where fminf/fmaxf alone would drop the NaN and keep the other plane's
+// distance.
+__device__ __forceinline__ void slab_overlap(const float* row, V3 o, V3 inv, float* tmin_out,
+                                             float* tmax_out) {
   const float os[3] = {o.x, o.y, o.z};
   const float is[3] = {inv.x, inv.y, inv.z};
   float tmin = -INFINITY, tmax = INFINITY;
@@ -63,7 +65,24 @@ __device__ __forceinline__ bool slab_live(const float* row, V3 o, V3 inv, float 
     tmin = fmaxf(tmin, lo);
     tmax = fminf(tmax, hi);
   }
+  *tmin_out = tmin;
+  *tmax_out = tmax;
+}
+
+// Does the ray hit the box, and is the entry closer than t_run?
+__device__ __forceinline__ bool slab_live(const float* row, V3 o, V3 inv, float t_run) {
+  float tmin, tmax;
+  slab_overlap(row, o, inv, &tmin, &tmax);
   return (tmax >= tmin) && (tmax >= 0.0f) && (fmaxf(tmin, 0.0f) < t_run);
+}
+
+// The distance at which a live ray enters the box (clamped at 0); +inf for a
+// ray that is not live.
+__device__ __forceinline__ float slab_entry(const float* row, V3 o, V3 inv, float t_run) {
+  float tmin, tmax;
+  slab_overlap(row, o, inv, &tmin, &tmax);
+  float entry = fmaxf(tmin, 0.0f);
+  return ((tmax >= tmin) && (tmax >= 0.0f) && (entry < t_run)) ? entry : INFINITY;
 }
 
 // glm one-sided Moller-Trumbore against face row `fr`: the hit distance, or
@@ -85,6 +104,33 @@ __device__ __forceinline__ float triangle_t(const float* fr, V3 o, V3 d, float* 
   *u_out = u;
   *w_out = w;
   return (hit && t > 0.0f) ? t : INFINITY;
+}
+
+// Point (rotated barycentrics), unit normal (standard barycentrics) and
+// material of the hit (u, w) on face row `fr` (intersections.h:166-168).
+__device__ __forceinline__ void winner_attributes(const float* fr, float u, float w, V3* point,
+                                                  V3* normal, int* mat) {
+  V3 v0 = v3(fr[0], fr[1], fr[2]), v1 = v3(fr[3], fr[4], fr[5]), v2 = v3(fr[6], fr[7], fr[8]);
+  V3 n0 = v3(fr[9], fr[10], fr[11]), n1 = v3(fr[12], fr[13], fr[14]),
+     n2 = v3(fr[15], fr[16], fr[17]);
+  float v = 1.0f - u - w;
+  *point = add(add(scale(v0, u), scale(v1, w)), scale(v2, v));
+  *normal = normalized_safe(add(add(scale(n0, v), scale(n1, u)), scale(n2, w)));
+  *mat = (int)fr[18];
+}
+
+// A traversal's result for ray i: seven float planes of n rays and the
+// material plane.
+__device__ __forceinline__ void store_hit(float* out, int* mat_out, size_t n, int i, float t,
+                                          V3 point, V3 normal, int mat) {
+  out[i] = t;
+  out[n + i] = point.x;
+  out[2 * n + i] = point.y;
+  out[3 * n + i] = point.z;
+  out[4 * n + i] = normal.x;
+  out[5 * n + i] = normal.y;
+  out[6 * n + i] = normal.z;
+  mat_out[i] = mat;
 }
 
 }  // namespace aptd

@@ -296,20 +296,19 @@ def mesh_t_cull(mesh: MeshData, o: Vec3, d: Vec3, t_g: torch.Tensor,
 
 def _mesh_intersect_bvh(mesh: MeshData, o: Vec3, d: Vec3, t_cull, impl: str,
                         kernel_lanes: Optional[int]):
-    # imported here: both modules build on this one (``_triangle_t``)
-    from ..render import mesh_binned, mesh_kernel_v2p
+    # imported here: these modules build on this one (``_triangle_t``)
+    from ..render import mesh_binned, mesh_kernel, mesh_kernel_v2p, mesh_kernel_v3
     if impl == "binned":
         return mesh_binned.mesh_intersect_binned(mesh.bvh, o, d, t_cull,
                                                  lanes=kernel_lanes)
     if impl in ("v2p", "v2s"):
         return mesh_kernel_v2p.mesh_intersect_bvh_v2p(
             mesh.bvh, o, d, t_cull, lanes=kernel_lanes, subtile=impl == "v2s")
-    if impl in ("v2", "v3"):
-        raise NotImplementedError(
-            f"mesh_kernel_impl={impl!r} is not ported yet (ROADMAP queue B: "
-            "K7 is \"v2\", render/mesh_kernel.py; K8 is \"v3\", "
-            "render/mesh_kernel_v3.py); use \"auto\", \"v2p\", \"v2s\" or "
-            "\"binned\"")
+    if impl == "v2":
+        return mesh_kernel.mesh_intersect_bvh(mesh.bvh, o, d, t_cull,
+                                              lanes=kernel_lanes)
+    if impl == "v3":
+        return mesh_kernel_v3.mesh_intersect_bvh_v3(mesh.bvh, o, d, t_cull)
     raise ValueError(f"mesh_kernel_impl={impl!r}")
 
 
@@ -328,13 +327,14 @@ def intersect_scene_v(geoms: Geoms, mesh: MeshData, o: Vec3, d: Vec3,
 
     ``use_bvh``: send the mesh through its cluster hierarchy (default:
     whenever it carries one) instead of the dense scan behind the per-ray
-    AABB gate.  ``kernel_impl`` picks the BVH intersection ("auto", "v2p",
-    "v2s", "binned"; see ``resolve_mesh_impl``).  ``active``: per-ray
+    AABB gate.  ``kernel_impl`` picks the BVH intersection ("auto", "v2",
+    "v2p", "v2s", "v3", "binned"; see ``resolve_mesh_impl``).  ``active``: per-ray
     liveness; dead lanes skip all BVH work.  ``octant_sort`` /
     ``sort_cells``: permute the rays by ``octant_cell_key`` before the
     traversal and back after it (a pure round trip; the binned pipeline
-    packs rays itself and ignores it).  ``kernel_lanes`` is handed to the
-    kernels' wrappers, where it has no effect.
+    packs rays itself and ignores it).  ``kernel_lanes`` is the rays per tile
+    of the tile-gated traversal ("v2": its gating granule and CUDA block
+    size, None = 1024); the other intersections accept and ignore it.
     """
     t_g, p_g, n_g, out_g, mat_g = intersect_geoms_v(geoms, o, d)
     if mesh.num_faces > 0:

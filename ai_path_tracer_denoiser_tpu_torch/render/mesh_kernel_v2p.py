@@ -39,18 +39,19 @@ KERNEL = CudaKernel("mesh_bvh_v2p", "mesh_bvh_v2p.cu", extra_flags=("-fmad=false
                     declare=_declare, headers=("mesh_common.cuh",))
 
 
-def _slab_live(rows: torch.Tensor, o: Vec3, inv: Vec3, t_run: torch.Tensor):
-    """Rays vs AABB rows: live = hits the box & enters it before ``t_run``.
+def _slab_entry(rows: torch.Tensor, o: Vec3, inv: Vec3):
+    """Rays vs AABB rows: (tmin, tmax) of each ray's overlap with each box.
 
     ``rows``: (K, 8) bounds rows [lbx lby lbz ubx uby ubz _ _]; the ray
-    planes are (N,).  Returns (K, N) bool.  A NaN plane distance (0 * inf:
-    the origin on a box face with a zero direction component) leaves that
-    axis unbounded instead of culling, so the gate is only ever conservative;
-    the rule is written out because ``torch.minimum`` propagates NaN while
-    the CUDA kernels' ``fminf`` drops it.
+    planes are (N,).  Returns two (K, N) tensors.  A NaN plane distance
+    (0 * inf: the origin on a box face with a zero direction component)
+    leaves that axis unbounded instead of culling, so a gate built on this
+    is only ever conservative; the rule is written out because
+    ``torch.minimum`` propagates NaN while the CUDA kernels' ``fminf`` drops
+    it.
     """
-    tmin = torch.full((rows.shape[0], t_run.shape[0]), -_INF,
-                      dtype=torch.float32, device=t_run.device)
+    tmin = torch.full((rows.shape[0], o.x.shape[0]), -_INF,
+                      dtype=torch.float32, device=o.x.device)
     tmax = torch.full_like(tmin, _INF)
     for axis, (oc, ic) in enumerate(((o.x, inv.x), (o.y, inv.y), (o.z, inv.z))):
         t1 = (rows[:, axis, None] - oc) * ic
@@ -60,6 +61,13 @@ def _slab_live(rows: torch.Tensor, o: Vec3, inv: Vec3, t_run: torch.Tensor):
         hi = torch.where(nan, _INF, torch.maximum(t1, t2))
         tmin = torch.maximum(tmin, lo)
         tmax = torch.minimum(tmax, hi)
+    return tmin, tmax
+
+
+def _slab_live(rows: torch.Tensor, o: Vec3, inv: Vec3, t_run: torch.Tensor):
+    """Rays vs AABB rows: live = hits the box & enters it before ``t_run``.
+    Returns (K, N) bool."""
+    tmin, tmax = _slab_entry(rows, o, inv)
     return (tmax >= tmin) & (tmax >= 0.0) & (torch.clamp_min(tmin, 0.0) < t_run)
 
 
@@ -126,6 +134,23 @@ def table_ptr(table: torch.Tensor, cols: int, device) -> int:
     return table.data_ptr()
 
 
+def table_ptrs(bvh: MeshBVH, device):
+    """Pointers of the face table and the three bounds tables, checked."""
+    return (table_ptr(bvh.faces_packed, 19, device), table_ptr(bvh.cluster_bounds, 8, device),
+            table_ptr(bvh.super_bounds, 8, device), table_ptr(bvh.hyper_bounds, 8, device))
+
+
+def hit_buffers(n: int, device):
+    """The (7, n) float32 and (n,) int32 buffers a traversal kernel fills."""
+    return (torch.empty((7, n), dtype=torch.float32, device=device),
+            torch.empty((n,), dtype=torch.int32, device=device))
+
+
+def hit_planes(out: torch.Tensor, mat: torch.Tensor):
+    """(t, point, normal, material) views of a traversal kernel's buffers."""
+    return out[0], Vec3(out[1], out[2], out[3]), Vec3(out[4], out[5], out[6]), mat
+
+
 def mesh_intersect_bvh_v2p(bvh: MeshBVH, o: Vec3, d: Vec3,
                            t_cull: Optional[torch.Tensor] = None,
                            lanes: Optional[int] = None, subtile: bool = False,
@@ -147,10 +172,8 @@ def mesh_intersect_bvh_v2p(bvh: MeshBVH, o: Vec3, d: Vec3,
         return mesh_intersect_bvh_v2p_plain(bvh, o, d, t_cull)
     dev = t_cull.device
     planes = ray_planes(o, d, t_cull)
-    tables = (table_ptr(bvh.faces_packed, 19, dev), table_ptr(bvh.cluster_bounds, 8, dev),
-              table_ptr(bvh.super_bounds, 8, dev), table_ptr(bvh.hyper_bounds, 8, dev))
-    out = torch.empty((7, n), dtype=torch.float32, device=dev)
-    mat = torch.empty((n,), dtype=torch.int32, device=dev)
+    tables = table_ptrs(bvh, dev)
+    out, mat = hit_buffers(n, dev)
     lib = KERNEL.lib()
     with torch.cuda.device(dev):
         rc = lib.aptd_mesh_bvh_v2p(
@@ -160,7 +183,7 @@ def mesh_intersect_bvh_v2p(bvh: MeshBVH, o: Vec3, d: Vec3,
             torch.cuda.current_stream().cuda_stream)
     check(rc, "mesh BVH kernel")
     KERNEL.launches += 1
-    return out[0], Vec3(out[1], out[2], out[3]), Vec3(out[4], out[5], out[6]), mat
+    return hit_planes(out, mat)
 
 
 def traversal_work(bvh: MeshBVH, o: Vec3, d: Vec3, t_cull: torch.Tensor,

@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the port's six CUDA kernels from csrc/, holds each against its
+Builds the port's ten CUDA kernels from csrc/, holds each against its
 plain PyTorch version on the card, and drives the main paths through the
 CLI's entry point.  Training: `datagen` renders a 14-frame 512x512 corpus
 of the Cornell box with the render megakernel, `train` takes one epoch (3
@@ -19,7 +19,16 @@ and cornell_mesh_statue.txt (81,920 faces, bin subscription + pair kernels;
 plain wavefront, so no megakernel launch).  The mesh kernels are checked on
 the calls recorded from an actual 800x800 frame of each scene (primary rays
 and the first secondary bounce, with their real cull distances and dead
-lanes), whole and bit for bit.  The conv kernels are checked on the frame's 28
+lanes), whole and bit for bit.  The mesh-traversal experiment path: the
+tile-gated and the front-to-back traversal kernels (`--mesh-kernel-impl v2`
+and `v3`) on those same recorded calls against the dense scan and the
+per-ray kernel, on a call with coincident faces in different clusters, and
+through `interactive` (frames equal to the per-ray traversal's bit for bit,
+8 launches per frame) and `bench`; `render` with material sort, first-bounce
+cache and motion blur; the three traversals timed side by side on a sorted
+and an unsorted frame; and the visit-cost probe
+(`tools/mm_feasibility.py`: the scalar and the tensor-core visit kernel
+against their plain versions, then microseconds per visit).  The conv kernels are checked on the frame's 28
 shapes (bfloat16, float32 and batched input; the row-band kernel also on a
 zero-bordered input) and the conv's autograd on the train step's 28 shapes
 against the plain backward pass and `F.conv2d`'s.  It checks that every path
@@ -63,6 +72,11 @@ MODEL_FRAMES = 2              # interactive frames per conv impl, trained model
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+IMPL_FRAMES = 2               # interactive frames per traversal and sort setting
+BENCH_ITERS = {"cornell_box": 64, "blob": 3, "statue": 2}
+PROBE_VISITS = 32768          # the visit-cost probe's own count
+OPS_VISIT_TEST = 12           # hit test + division per (face, ray) of the product visit
 
 
 def require(cond, what):
@@ -160,11 +174,14 @@ def main():
                                                          load_checkpoint, trainer)
     from ai_path_tracer_denoiser_tpu_torch.render import (
         assemble_gbuffer, cuda_backend, init_render_state, mesh_binned,
-        mesh_kernel_v2p, render_gbuffer_frame)
+        mesh_kernel, mesh_kernel_v2p, mesh_kernel_v3, render, render_gbuffer_frame)
     from ai_path_tracer_denoiser_tpu_torch.scene import (
         derive_camera, load_scene, orbit_camera, orbit_params_from_camera)
+    from ai_path_tracer_denoiser_tpu_torch.ops import bvh as mesh_bvh
+    from ai_path_tracer_denoiser_tpu_torch.ops.vec3 import Vec3
+    from ai_path_tracer_denoiser_tpu_torch.tools import mm_feasibility
     from ai_path_tracer_denoiser_tpu_torch.utils.cuda_build import build_all
-    from ai_path_tracer_denoiser_tpu_torch.utils.imageio import read_png
+    from ai_path_tracer_denoiser_tpu_torch.utils.imageio import read_png, save_png_scaled
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -180,10 +197,12 @@ def main():
     emit({"phase": "device", "kind": kind, "count": count, "card": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # ---- 2. build all six kernels (one nvcc per source, in parallel) ----
+    # ---- 2. build all ten kernels (one nvcc per source, in parallel) ----
     kernels = (cuda_backend.KERNEL, conv_kernel.KERNEL, conv_kernel.ROWS_KERNEL,
                mesh_kernel_v2p.KERNEL, mesh_binned.PHASE1_KERNEL,
-               mesh_binned.PAIR_KERNEL)
+               mesh_binned.PAIR_KERNEL, mesh_kernel.KERNEL, mesh_kernel_v3.KERNEL,
+               mm_feasibility.VPU_KERNEL, mm_feasibility.MMA_KERNEL)
+    require(len(kernels) == 10, "ten kernels")
     t0 = time.time()
     build_all(kernels)
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
@@ -316,9 +335,8 @@ def main():
     launches = {k.name: k.launches for k in kernels}
     require(launches["render_megakernel"] == FRAMES, f"K1 launches {launches}")
     require(launches["conv3x3_act"] == 28 * FRAMES, f"K2 launches {launches}")
-    require(launches["mesh_bvh_v2p"] == launches["mesh_binned_phase1"]
-            == launches["mesh_binned_pair"] == launches["conv3x3_rows"] == 0,
-            f"mesh and row-band conv launches {launches}")
+    require(sum(launches.values()) == 29 * FRAMES,
+            f"launches of kernels off the main path {launches}")
     for rec in records:
         require(rec["finite"], f"frame {rec['frame']} finite")
         img = read_png(rec["path"])
@@ -750,7 +768,7 @@ def main():
         ph, th, zm = orbit_params_from_camera(sc.camera)
         return dataclasses.replace(sc, camera=orbit_camera(sc.camera, ph, th, zm))
 
-    def record_frame(sc, impl):
+    def record_frame(sc, impl, **options):
         calls = {"v2p": [], "phase1": [], "pair": [], "binned": [], "paths": []}
         with recording(mesh_kernel_v2p, "mesh_intersect_bvh_v2p", calls["v2p"]), \
                 recording(mesh_binned, "_phase1", calls["phase1"]), \
@@ -758,7 +776,7 @@ def main():
                 recording(mesh_binned, "mesh_intersect_binned", calls["binned"],
                           after=lambda: calls["paths"].append(dict(mesh_binned.PATHS))):
             before = dict(mesh_binned.PATHS)
-            render_gbuffer_frame(sc, RenderOptions(mesh_kernel_impl=impl))
+            render_gbuffer_frame(sc, RenderOptions(mesh_kernel_impl=impl, **options))
         torch.cuda.synchronize()
         # which side each recorded call of the binned pipeline took
         calls["sides"] = []
@@ -786,7 +804,50 @@ def main():
 
     mesh_scenes = {name: frame_zero(path) for name, path in MESH_SCENES.items()}
     recorded = {}
-    mesh_err = {"mesh_bvh_v2p": 0.0, "mesh_binned_phase1": 0.0, "mesh_binned_pair": 0.0}
+    mesh_err = {"mesh_bvh_v2p": 0.0, "mesh_binned_phase1": 0.0, "mesh_binned_pair": 0.0,
+                "mesh_bvh_v2": 0.0, "mesh_bvh_v3": 0.0}
+
+    def traversals(bvh, o, d, tc):
+        """The tile-gated kernel at both granules and the front-to-back kernel."""
+        return {"mesh_bvh_v2": {1024: flat_hit(mesh_kernel.mesh_intersect_bvh(bvh, o, d, tc)),
+                                128: flat_hit(mesh_kernel.mesh_intersect_bvh(bvh, o, d, tc, 128))},
+                "mesh_bvh_v3": {128: flat_hit(mesh_kernel_v3.mesh_intersect_bvh_v3(bvh, o, d, tc))}}
+
+    def all_equal(got, want):
+        return all(torch.equal(a, b) for a, b in zip(got, want))
+
+    def check_traversals(where, bvh, o, d, tc, want, k4):
+        """K7 and K8 on one whole call against the dense scan ``want`` and the
+        per-ray kernel's output ``k4``, and on two 512-ray slices against
+        their own plain versions (the tile walks); one JSON line each."""
+        n = tc.shape[0]
+        got = traversals(bvh, o, d, tc)
+        slices = [slice(0, 512), slice(n // 2, n // 2 + 512)]
+        own = {"mesh_bvh_v2": lambda sl, lanes: mesh_kernel.mesh_intersect_bvh_plain(
+                   bvh, *subset((o, d, tc), sl), lanes),
+               "mesh_bvh_v3": lambda sl, lanes: mesh_kernel_v3.mesh_intersect_bvh_v3_plain(
+                   bvh, *subset((o, d, tc), sl))}
+        for kname, by_lanes in got.items():
+            for lanes, res in by_lanes.items():
+                err = max_abs_diff(res, want)
+                mesh_err[kname] = max(mesh_err[kname], err)
+                own_equal = all(all_equal(subset(res, sl), flat_hit(own[kname](sl, lanes)))
+                                for sl in slices)
+                rec_ = {"phase": "mesh_v2_check" if kname == "mesh_bvh_v2" else "mesh_v3_check",
+                        **where, "rays": n, "lanes": lanes,
+                        "live": int((tc > float("-inf")).sum()),
+                        "hits": int(torch.isfinite(want[0]).sum()),
+                        "equals_dense_scan": all_equal(res, want),
+                        "equals_per_ray_kernel": all_equal(res, k4),
+                        "equals_own_plain_on_slices": own_equal, "max_abs_err": err,
+                        "bar": "t, point, normal, material equal bit for bit (torch.equal) "
+                               "to the dense scan and to the per-ray kernel on every ray "
+                               "of the call, and to the kernel's own plain version on "
+                               "rays [0, 512) and [n/2, n/2 + 512)"}
+                emit(rec_)
+                require(rec_["equals_dense_scan"] and rec_["equals_per_ray_kernel"]
+                        and own_equal, f"{kname} at lanes {lanes} on {where}")
+
     for name, sc in mesh_scenes.items():
         bvh = sc.mesh.bvh
         rec = {impl: record_frame(sc, impl) for impl in ("v2p", "binned")}
@@ -811,6 +872,7 @@ def main():
                          "(torch.equal) on every ray of the call"})
             require(equal and int(torch.isfinite(want[0]).sum()) > 0,
                     f"BVH kernel vs plain on {name}, bounce {bounce}")
+            check_traversals({"scene": name, "bounce": bounce}, bvh, o, d, tc, want, got)
             # The binned pipeline as a whole against the dense scan, on the
             # same bounce of the frame rendered through it.  That frame skips
             # the carry sort, so after the primary rays its lanes are the
@@ -998,6 +1060,242 @@ def main():
                                   + mesh_summary["mesh_binned_pair"]["ms"]),
               "host_reads_of_fits_per_frame": len(whole) if routed == "binned" else 0})
 
+    # ---- 10b. coincident faces in different clusters: exact ties in t ----
+    # 128 faces kept in file order, four clusters of small faces near the
+    # origin.  Cluster 2 repeats faces 0..30 of cluster 0 with other
+    # materials, so every hit of one ties with the other's, and its last face
+    # is a sliver across the whole scene, so its box holds every ray origin:
+    # the front-to-back walk enters it at distance 0 and visits it BEFORE
+    # cluster 0, and only the cluster-index tie-break keeps the dense scan's
+    # first minimal face.  Rays start on a sphere around the soup, aimed at
+    # the repeated faces.
+    rng = np.random.default_rng(7)
+
+    def blob(center):
+        c = np.asarray(center) + rng.uniform(-0.3, 0.3, (32, 1, 3))
+        return (c + rng.uniform(-0.15, 0.15, (32, 3, 3))).astype(np.float32)
+
+    tri = [blob((0, 0, 0)), blob((0.3, 0, 0)), None, blob((0, 0.4, 0))]
+    tri[2] = tri[0].copy()
+    tri[2][31] = np.array([[-5, -5, -5], [5, 5, 5], [5, 5, 5.001]], np.float32)
+    tri = np.concatenate(tri)
+    nrm = rng.normal(size=(128, 3, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    nrm[64:95] = nrm[0:31]
+    mats = rng.integers(0, 5, 128).astype(np.int32)
+    mats[64:95] = (mats[0:31] + 1) % 5
+    tie_bvh = mesh_bvh.build_mesh_bvh(tri, nrm, mats, reorder=False)[0].to(dev)
+    rest_bvh = mesh_bvh.build_mesh_bvh(tri[32:], nrm[32:], mats[32:], reorder=False)[0].to(dev)
+    n_tie = 200_037                                  # a ragged tail for every tile size
+    to = rng.normal(size=(3, n_tie))
+    to = (3.5 * to / np.linalg.norm(to, axis=0, keepdims=True)).astype(np.float32)
+    bary = rng.dirichlet(np.ones(3), n_tie).astype(np.float32)
+    td = np.einsum("nc,ncx->nx", bary, tri[rng.integers(0, 31, n_tie)]).T - to
+    td = (td / np.linalg.norm(td, axis=0, keepdims=True)).astype(np.float32)
+    to, td = torch.from_numpy(to).to(dev), torch.from_numpy(td).to(dev)
+    ttc = torch.full((n_tie,), float("inf"), device=dev)
+    ttc[::5] = float("-inf")
+    ttc[1::7] = torch.from_numpy(rng.uniform(0.5, 8.0, n_tie).astype(np.float32)).to(dev)[1::7]
+    to, td = Vec3(*to), Vec3(*td)
+    want = plain_v2p(tie_bvh, to, td, ttc)
+    k4 = flat_hit(mesh_kernel_v2p.mesh_intersect_bvh_v2p(tie_bvh, to, td, ttc))
+    # without cluster 0 the same t but the copy's material: a tie that the
+    # smaller cluster index won
+    rest = plain_v2p(rest_bvh, to, td, ttc)
+    tied = int((torch.isfinite(want[0]) & (rest[0] == want[0]) & (rest[7] != want[7])).sum())
+    face_rows = tie_bvh.faces_packed[:, :9]
+    require(torch.equal(face_rows[:31], face_rows[64:95]) and all_equal(k4, want)
+            and tied > n_tie // 10, f"the tie call: {tied} rays tie between clusters 0 and 2")
+    check_traversals({"scene": "coincident clusters 0 and 2", "bounce": None,
+                      "tied_rays": tied}, tie_bvh, to, td, ttc, want, k4)
+
+    # ---- 10c. the traversal experiment path: interactive with v2 and v3 ----
+    # `interactive` on the blob with each traversal, carry-sorted and not;
+    # counts set to 0 just before each run and read just after.  Every frame
+    # takes 8 intersection calls (depth 8), all through the chosen kernel.
+    impl_kernel = {"v2p": "mesh_bvh_v2p", "v2": "mesh_bvh_v2", "v3": "mesh_bvh_v3"}
+    impl_frames = {}
+    impl_counts = {}
+    for sort_flag in ("--mesh-octant-sort", "--no-mesh-octant-sort"):
+        for impl in ("v2p", "v2", "v3"):
+            reset_counts()
+            out_dir = os.path.join(OUT_DIR, f"frames_blob_{impl}_{sort_flag.strip('-')}")
+            recs = cli.main(["interactive", MESH_SCENES["blob"], "--frames", str(IMPL_FRAMES),
+                             "--model", MODEL, "--out-dir", out_dir, "--save-arrays",
+                             "--mesh-kernel-impl", impl, sort_flag])
+            counts = launch_counts()
+            stems = [r_["path"][:-len(".png")] for r_ in recs]
+            frames = [(np.load(st_ + "_gbuffer.npy"), np.load(st_ + "_denoised.npy"))
+                      for st_ in stems]
+            impl_frames[impl, sort_flag] = frames
+            impl_counts[impl, sort_flag] = counts
+            expect = {impl_kernel[impl]: 8 * IMPL_FRAMES, "conv3x3_act": 28 * IMPL_FRAMES}
+            require({k: v for k, v in counts.items() if v} == expect,
+                    f"{impl} {sort_flag}: launches {counts}, expected only {expect}")
+            require(all(r_["finite"] for r_ in recs), f"{impl} {sort_flag}: frames finite")
+            equal = all(np.array_equal(a, b) for fa, fb in
+                        zip(frames, impl_frames["v2p", sort_flag]) for a, b in zip(fa, fb))
+            require(equal, f"{impl} {sort_flag}: frames differ from the per-ray traversal's")
+            emit({"phase": "mesh_impl_path", "scene": "blob", "impl": impl,
+                  "flag": sort_flag, "res": [w0, h0], "frames": IMPL_FRAMES, "card": smi,
+                  "launches": {k: v for k, v in counts.items() if v},
+                  "gbuffer_and_denoised_equal_to_v2p_bitwise": equal,
+                  "per_frame_ms": [{k: round(v, 3) for k, v in r_.items() if k.endswith("_ms")}
+                                   for r_ in recs]})
+    sorted_equal = all(np.array_equal(a, b) for fa, fb in
+                       zip(impl_frames["v2p", "--mesh-octant-sort"],
+                           impl_frames["v2p", "--no-mesh-octant-sort"]) for a, b in zip(fa, fb))
+    require(sorted_equal, "the carry sort changed the frames")
+
+    # ---- 10d. the bench command, and render with the three wavefront options ----
+    bench_ms = {}
+    for scene_name, path, impls in (("cornell_box", SCENE, (None,)),
+                                    ("blob", MESH_SCENES["blob"], ("auto", "v2p", "v2", "v3", "binned")),
+                                    ("statue", MESH_SCENES["statue"], ("auto", "v2p", "v2", "v3", "binned"))):
+        for impl in impls:
+            reset_counts()
+            argv = ["bench", path, "--iters", str(BENCH_ITERS[scene_name])]
+            out = cli.main(argv + (["--mesh-kernel-impl", impl] if impl else []))
+            counts = {k: v for k, v in launch_counts().items() if v}
+            bench_ms[f"{scene_name}:{impl or 'megakernel'}"] = out[os.path.basename(path)]
+            if impl is None:     # warm-up (2 iterations) + the timed 64: one launch each
+                require(counts == {"render_megakernel": 2}, f"bench cornell launches {counts}")
+            else:
+                routed = impl if impl != "auto" else ("v2p" if scene_name == "blob" else "binned")
+                expect = ({"mesh_binned_phase1", "mesh_binned_pair"} if routed == "binned"
+                          else {impl_kernel[routed]})
+                # the binned pipeline's fallback, if a bounce takes it, is the per-ray kernel
+                allowed = expect | ({"mesh_bvh_v2p"} if routed == "binned" else set())
+                require(expect <= set(counts) <= allowed,
+                        f"bench {scene_name} {impl}: launches {counts}")
+    emit({"phase": "bench_path", "card": smi, "res": [w0, h0], "iters": BENCH_ITERS,
+          "ms_for_all_iterations": bench_ms,
+          "note": "host clock around render(), the device drained before and after"})
+
+    plain_opts = RenderOptions(backend="xla", antialias=False)
+    reset_counts()
+    img_plain, g_plain, _ = render(base, plain_opts, num_iterations=3)
+    img_opt, g_opt, st_opt = render(base, RenderOptions(antialias=False, sort_material=True,
+                                                        cache_first_bounce=True),
+                                    num_iterations=3)
+    img_mb, g_mb, st_mb = render(base, RenderOptions(motion_blur=True, sort_material=True),
+                                 num_iterations=8)
+    require(sum(launch_counts().values()) == 0, "the three options render through the plain wavefront")
+    require(torch.equal(g_opt, g_plain) and st_opt.cache is not None,
+            "sort_material + cache_first_bounce changed the render")
+    require(bool(torch.isfinite(g_mb).all()) and st_mb.geoms is not None
+            and not torch.equal(st_mb.geoms.transform, base.geoms.transform),
+            "motion blur: finite, geoms moved")
+    opt_png = os.path.join(OUT_DIR, "render_options.png")
+    cli.main(["render", SCENE, "--spp", "3", "--no-antialias", "--sort-material",
+              "--cache-first-bounce", "--out", opt_png])
+    want_png = save_png_scaled(os.path.join(OUT_DIR, "render_plain.png"),
+                               img_plain.flip(1).cpu().numpy())
+    mb_png = os.path.join(OUT_DIR, "render_motion_blur.png")
+    cli.main(["render", SCENE, "--spp", "8", "--motion-blur", "--sort-material", "--out", mb_png])
+    mb_img = read_png(mb_png)
+    require(np.array_equal(read_png(opt_png), read_png(want_png)),
+            "render --sort-material --cache-first-bounce: PNG differs from the plain render's")
+    require(mb_img.shape == (h0, w0, 3) and mb_img.std() > 0, "render --motion-blur PNG")
+    emit({"phase": "render_options", "card": smi, "res": [w0, h0],
+          "sort_material_and_cache_equal_plain_bitwise": True,
+          "motion_blur_finite": True,
+          "motion_blur_vs_static_mean_abs_diff": float((img_mb - render(
+              base, RenderOptions(backend="xla"), num_iterations=8)[0]).abs().mean())})
+
+    # ---- 10e. the three traversals side by side ----
+    # Every call of one frame (all bounces), recorded from a carry-sorted
+    # frame (the default) and from an unsorted one, timed alone through each
+    # kernel; ms per frame beside the bound of the work the rays need
+    # (`traversal_work`: the same for every traversal).
+    traversal_fns = {
+        "mesh_bvh_v2p": lambda b, o, d, tc: mesh_kernel_v2p.mesh_intersect_bvh_v2p(b, o, d, tc),
+        "mesh_bvh_v2@128": lambda b, o, d, tc: mesh_kernel.mesh_intersect_bvh(b, o, d, tc, 128),
+        "mesh_bvh_v2@1024": lambda b, o, d, tc: mesh_kernel.mesh_intersect_bvh(b, o, d, tc, 1024),
+        "mesh_bvh_v3": lambda b, o, d, tc: mesh_kernel_v3.mesh_intersect_bvh_v3(b, o, d, tc)}
+    impl_timing = {}
+    for name, sc in mesh_scenes.items():
+        for order in ("sorted", "unsorted"):
+            calls = [a[:4] for a in (recorded[name]["v2p"]["v2p"] if order == "sorted" else
+                                     record_frame(sc, "v2p", mesh_octant_sort=False)["v2p"])]
+            work = [mesh_kernel_v2p.traversal_work(*a) for a in calls]
+            bounds = [bound_ms(nb, ft * OPS_TRIANGLE + nt * OPS_AABB, FP32_FLOPS)
+                      for nb, ft, nt in work]
+            per_kernel = {k: time_calls(fn, calls, reps=3) for k, fn in traversal_fns.items()}
+            impl_timing[name, order] = {k: sum(v) for k, v in per_kernel.items()}
+            emit({"phase": "mesh_impl_timing", "scene": name, "rays_carry_sorted": order == "sorted",
+                  "card": smi, "launches_per_frame": len(calls),
+                  "frame_ms": impl_timing[name, order], "per_launch_ms": per_kernel,
+                  "frame_bound_ms": sum(b for b, _ in bounds),
+                  "bound_by": sorted({by for _, by in bounds}),
+                  "frame_face_tests": sum(ft for _, ft, _ in work),
+                  "frame_node_tests": sum(nt for _, _, nt in work)})
+
+    # ---- 10f. the visit-cost probe: K9a and K9b ----
+    p_rays, p_faces, p_coeffs = mm_feasibility.probe_inputs(0, dev)
+    vpu_got = mm_feasibility.visit_vpu(p_rays, p_faces, PROBE_VISITS)
+    vpu_want, vpu_plain_ms = wall_ms(lambda: mm_feasibility.visit_vpu_plain(p_rays, p_faces))
+    vpu_err = max_abs_diff([vpu_got], [vpu_want])
+    require(torch.equal(vpu_got, vpu_want) and int((vpu_want[0] < 1e38).sum()) > 500,
+            f"scalar visit kernel vs plain: max abs err {vpu_err}")
+
+    def visit_mismatches(got, want):
+        """Rays whose t misses |k - p| <= 1e-5 |p| + 1e-5, and rays whose face differs."""
+        bad = (got[0] - want[0]).abs() > 1e-5 * want[0].abs() + 1e-5
+        return int(bad.sum()), int((got[1] != want[1]).sum())
+
+    mma = {}
+    for mode, highest, precision in (("tf32", False, "tf32"), ("3xtf32", True, "float32")):
+        got = mm_feasibility.visit_mma(p_rays, p_coeffs, PROBE_VISITS, highest)
+        want, plain_ms = wall_ms(lambda: mm_feasibility.visit_mma_plain(
+            p_rays, p_coeffs, precision=precision))
+        bad_t, bad_face = visit_mismatches(got, want)
+        mma[mode] = {"t_mismatches": bad_t, "face_mismatches": bad_face, "plain_ms": plain_ms,
+                     "max_abs_err": max_abs_diff([got[0]], [want[0]]),
+                     "hits": int((want[0] < 1e38).sum())}
+        require(bad_t + bad_face <= 10 and bool((got[2:] == 0).all()) and mma[mode]["hits"] > 500,
+                f"tensor-core visit kernel ({mode}) vs plain: {mma[mode]}")
+    # what one TF32 product loses against float32: a finding, not a check
+    tf32_vs_f32 = visit_mismatches(mm_feasibility.visit_mma(p_rays, p_coeffs, 64, False),
+                                   mm_feasibility.visit_mma_plain(p_rays, p_coeffs))
+    emit({"phase": "mm_feasibility_check", "rays": 1024, "visits": PROBE_VISITS,
+          "scalar_kernel_bitwise_equal": True, "scalar_hits": int((vpu_want[0] < 1e38).sum()),
+          "tensor_core_kernel": mma,
+          "tf32_kernel_vs_float32_plain": {"t_mismatches": tf32_vs_f32[0],
+                                           "face_mismatches": tf32_vs_f32[1]},
+          "tolerance": "scalar kernel: the (8, 1024) state equal bit for bit.  Tensor-core "
+                       "kernel: |t_k - t_p| <= 1e-5 |t_p| + 1e-5 and equal face ids on all "
+                       "but at most 10 of 1024 rays (a comparison next to its threshold may "
+                       "fall the other way); the TF32 mode against the plain version with "
+                       "both operands rounded to TF32, the 3xTF32 mode against the float32 "
+                       "plain version.  The winning t = tn / den has tn close to 0 by "
+                       "cancellation, so one TF32 product against float32 is reported, "
+                       "not held to a bar"})
+    reset_counts()
+    probe = mm_feasibility.main(["--visits", str(PROBE_VISITS)])
+    probe_counts = {k: v for k, v in launch_counts().items() if v}
+    # timed(): one warm-up call + 5; the tensor-core kernel in both modes
+    require(probe_counts == {"mm_visit_vpu": 6, "mm_visit_mma": 12}, f"probe launches {probe_counts}")
+    vpu_ms = time_ms(lambda: mm_feasibility.visit_vpu(p_rays, p_faces, PROBE_VISITS), 3, warmup=1)
+    mma_ms = {mode: time_ms(lambda h=h: mm_feasibility.visit_mma(p_rays, p_coeffs, PROBE_VISITS, h),
+                            3, warmup=1) for mode, h in (("tf32", False), ("3xtf32", True))}
+    io_bytes = 4 * (2 * 8 * 1024)
+    vpu_bound = bound_ms(io_bytes + 4 * p_faces.numel(),
+                         PROBE_VISITS * 1024 * 32 * OPS_TRIANGLE, FP32_FLOPS)
+    mm_flops = PROBE_VISITS * 2 * 128 * 16 * 1024
+    test_ops = PROBE_VISITS * 32 * 1024 * OPS_VISIT_TEST
+    mma_bound = {mode: max((io_bytes + 4 * p_coeffs.numel()) / HBM_BPS,
+                           mm_flops / peak + test_ops / FP32_FLOPS) * 1e3
+                 for mode, peak in (("tf32", TF32_FLOPS), ("3xtf32", FP32_FLOPS))}
+    emit({"phase": "mm_feasibility", "card": smi, "visits": PROBE_VISITS,
+          "launches_by_the_tool": probe_counts, "tool_results": probe,
+          "us_per_visit": {"scalar": vpu_ms / PROBE_VISITS * 1e3,
+                           **{m: v / PROBE_VISITS * 1e3 for m, v in mma_ms.items()}},
+          "kernel_ms": {"scalar": vpu_ms, **mma_ms},
+          "bound_ms": {"scalar": vpu_bound[0], **mma_bound},
+          "bound_by": "operations", "one_block": "each launch is one block on one of 132 SMs; "
+                                                 "the bound is the whole card's"})
+
     # ---- 11. the card's busy time in one train step (profiler), last ----
     step_busy = busy_ms(lambda: trainer.train_step(state, fixed_x, fixed_y, topt, mopt))
     emit({"phase": "train_step_busy", "card": smi, "device_busy_ms_in_one_step": step_busy,
@@ -1041,7 +1339,43 @@ def main():
              "ai_path_tracer_denoiser_tpu/render/mesh_binned.py:222", "statue"),
             ("mesh_binned_pair",
              "ai_path_tracer_denoiser_tpu/render/mesh_binned.py:356", "statue"))
+    ] + [
+        # the traversal experiment path: interactive on the blob, carry-sorted;
+        # ms and bound per frame on its recorded calls, plain_ms the dense scan
+        # on those calls
+        {"name": kname, "route": "cuda",
+         "source": f"ai_path_tracer_denoiser_tpu_torch/csrc/{kname}.cu",
+         "replaces": replaces, "launches": impl_counts[impl, "--mesh-octant-sort"][kname],
+         "max_abs_err": mesh_err[kname], "ms": impl_timing["blob", "sorted"][timed_as],
+         "plain_ms": mesh_summary["mesh_bvh_v2p"]["plain_ms"],
+         "bound_ms": mesh_summary["mesh_bvh_v2p"]["bound_ms"],
+         "bound_by": mesh_summary["mesh_bvh_v2p"]["bound_by"], "library_ms": None,
+         "frame_ms_by_scene_and_order": {
+             f"{sc_}:{order}": {k: v for k, v in t.items() if k.startswith(kname)}
+             for (sc_, order), t in impl_timing.items()}}
+        for kname, replaces, impl, timed_as in (
+            ("mesh_bvh_v2", "ai_path_tracer_denoiser_tpu/render/mesh_kernel.py:199", "v2",
+             "mesh_bvh_v2@1024"),
+            ("mesh_bvh_v3", "ai_path_tracer_denoiser_tpu/render/mesh_kernel_v3.py:356", "v3",
+             "mesh_bvh_v3"))
+    ] + [
+        {"name": "mm_visit_vpu", "route": "cuda",
+         "source": "ai_path_tracer_denoiser_tpu_torch/csrc/mm_visit_vpu.cu",
+         "replaces": "tools/exp_mm_feasibility.py:180", "launches": probe_counts["mm_visit_vpu"],
+         "max_abs_err": vpu_err, "ms": vpu_ms, "plain_ms": vpu_plain_ms,
+         "bound_ms": vpu_bound[0], "bound_by": vpu_bound[1], "library_ms": None,
+         "visits_per_launch": PROBE_VISITS, "plain_visits": 64},
+        {"name": "mm_visit_mma", "route": "cuda",
+         "source": "ai_path_tracer_denoiser_tpu_torch/csrc/mm_visit_mma.cu",
+         "replaces": "tools/exp_mm_feasibility.py:194", "launches": probe_counts["mm_visit_mma"],
+         "max_abs_err": mma["tf32"]["max_abs_err"], "ms": mma_ms["tf32"],
+         "plain_ms": mma["tf32"]["plain_ms"], "bound_ms": mma_bound["tf32"],
+         "bound_by": "operations", "library_ms": None,
+         "visits_per_launch": PROBE_VISITS, "plain_visits": 64,
+         "ms_3xtf32": mma_ms["3xtf32"], "bound_ms_3xtf32": mma_bound["3xtf32"],
+         "max_abs_err_3xtf32": mma["3xtf32"]["max_abs_err"]},
     ]}
+    require(len(summary["kernels"]) == 10, "ten kernels in the summary")
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, **summary, "conv_per_shape": per_shape}, f, indent=1)
     emit(summary)

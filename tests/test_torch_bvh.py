@@ -259,11 +259,24 @@ def test_traversal_work_counts():
 
 @pytest.mark.parametrize("impl", ["v2", "v3"])
 def test_unported_traversals_raise(impl):
+    """"v2" and "v3" raised while they were not ported; now they answer as
+    "v2p" does, and only an unknown name raises."""
     scene = load_scene(str(REPO / "scenes" / "cornell_mesh_icosphere.txt"), device="cpu")
-    o, d = rays(16, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B"):
+    o, d = rays(512, seed=1, spread=4.0)
+    o[1] += 5.0                                   # into the box, around the mesh
+    got = tintersect.intersect_scene_v(scene.geoms, scene.mesh, tvec(o), tvec(d),
+                                       kernel_impl=impl)
+    want = tintersect.intersect_scene_v(scene.geoms, scene.mesh, tvec(o), tvec(d),
+                                        kernel_impl="v2p")
+    assert (want["material_id"] >= 0).sum() > 100
+    for k in ("t", "material_id", "is_inside"):
+        assert torch.equal(got[k], want[k]), k
+    for k in ("point", "normal"):
+        for a, b in zip(got[k], want[k]):
+            assert torch.equal(a, b), k
+    with pytest.raises(ValueError):
         tintersect.intersect_scene_v(scene.geoms, scene.mesh, tvec(o), tvec(d),
-                                     kernel_impl=impl)
+                                     kernel_impl="v9")
     with pytest.raises(ValueError):
         RenderOptions(mesh_kernel_impl="v9")
 

@@ -246,3 +246,75 @@ def test_cli_defaults_to_cuda():
     args = parser.parse_args(["train", "--data-dir", "d"])
     assert (args.epochs, args.lr, args.crop_size, args.batch_size) == (100, 1e-3, 256, 1)
     assert parser.parse_args(["interactive", "s.txt"]).conv_impl == "auto"
+
+
+def test_bench_command_times_each_scene(tmp_path, capsys):
+    """``bench`` (the JAX CLI's per-scene timing harness): a 2-iteration
+    warm-up, then --iters iterations; one record per scene and a JSON line."""
+    import json
+
+    from ai_path_tracer_denoiser_tpu_torch.app.cli import main
+    results = main(["bench", "scenes/cornell_box.txt", "scenes/cornell_mesh_icosphere.txt",
+                    "--device", "cpu", "--res", "32", "--iters", "2",
+                    "--mesh-kernel-impl", "v3", "--profile", str(tmp_path / "trace")])
+    assert set(results) == {"cornell_box.txt", "cornell_mesh_icosphere.txt"}
+    assert all(ms > 0 for ms in results.values())
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == results
+    assert "2 iterations in" in lines[-2]
+    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+
+
+@pytest.mark.parametrize("impl,extra", [("v2", ["--mesh-kernel-lanes", "128"]),
+                                        ("v3", ["--no-mesh-octant-sort"]),
+                                        ("v2p", ["--sort-material"])])
+def test_interactive_traversal_flags_give_the_same_frames(tmp_path, impl, extra):
+    from ai_path_tracer_denoiser_tpu_torch.app.cli import main
+
+    def frames(name, flags):
+        recs = main(["interactive", "scenes/cornell_mesh_icosphere.txt", "--device", "cpu",
+                     "--res", "32", "--frames", "2", "--model", str(MODEL), "--save-arrays",
+                     "--out-dir", str(tmp_path / name)] + flags)
+        assert all(r["finite"] for r in recs)
+        return [np.load(r["path"][:-len(".png")] + "_gbuffer.npy") for r in recs]
+
+    want = frames("v2p", ["--mesh-kernel-impl", "v2p"])
+    got = frames(impl, ["--mesh-kernel-impl", impl] + extra)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_wavefront_option_flags_reach_render_options():
+    from ai_path_tracer_denoiser_tpu_torch.app.cli import (_render_options,
+                                                           build_parser)
+    parser = build_parser()
+    for cmd in (["render", "s.txt"], ["bench", "a.txt", "b.txt"]):
+        opts = _render_options(parser.parse_args(
+            cmd + ["--sort-material", "--cache-first-bounce", "--no-antialias",
+                   "--mesh-kernel-impl", "v3"]))
+        assert (opts.sort_material, opts.cache_first_bounce, opts.antialias,
+                opts.motion_blur, opts.mesh_kernel_impl) == (True, True, False, False, "v3")
+    opts = _render_options(parser.parse_args(["interactive", "s.txt", "--motion-blur"]))
+    assert opts.motion_blur and not opts.sort_material
+    with pytest.raises(ValueError, match="incompatible with antialiasing"):
+        _render_options(parser.parse_args(["render", "s.txt", "--cache-first-bounce"]))
+    with pytest.raises(ValueError, match="multiple of 128"):
+        _render_options(parser.parse_args(["render", "s.txt", "--mesh-kernel-lanes", "100"]))
+    bench = parser.parse_args(["bench", "a.txt", "b.txt"])
+    assert bench.scenes == ["a.txt", "b.txt"] and bench.iters == 500 and bench.device == "cuda"
+
+
+def test_timers_measure_on_the_cpu():
+    import time
+
+    from ai_path_tracer_denoiser_tpu_torch.utils.timers import PerformanceTimer, time_call
+    timer = PerformanceTimer("cpu")
+    timer.start_cpu()
+    timer.start_device()
+    time.sleep(0.02)
+    assert timer.end_device() >= 15.0 and timer.end_cpu() >= 15.0
+    assert timer.dev_elapsed_ms >= 15.0 and timer.cpu_elapsed_ms >= timer.dev_elapsed_ms - 1.0
+    calls = []
+    ms = time_call(lambda x: calls.append(x) or time.sleep(0.005), 7, warmup=2, iters=3,
+                   device="cpu")
+    assert calls == [7] * 5 and 4.0 <= ms < 200.0

@@ -15,10 +15,15 @@ the G-buffer agrees to isclose(rtol 1e-5, atol 1e-5) on >= 99.9% of
 pixels and the radiance to mean rel < 1e-3, PSNR >= 40 dB.  The conv
 kernel sums the products in another order than the plain float32 matmuls:
 float32 output within 1e-3 + 1e-3|p|, bfloat16 output within one bfloat16
-rounding step (1e-2 + 1.6e-2|p|).  The three mesh kernels (BVH traversal,
-bin subscription, pair intersection) are built with -fmad=false too and do
-their plain versions' operations in order: every output equal bit for bit
-(``torch.equal``, which takes -0.0 and +0.0 as equal).
+rounding step (1e-2 + 1.6e-2|p|).  The mesh kernels (the three BVH
+traversals, bin subscription, pair intersection) and the probe's scalar
+visit kernel are built with -fmad=false too and do their plain versions'
+operations in order: every output equal bit for bit (``torch.equal``, which
+takes -0.0 and +0.0 as equal).  The probe's tensor-core visit kernel is held
+to |t_k - t_p| <= 1e-5 |t_p| + 1e-5 and equal face ids on all but 10 of 1024
+rays, its TF32 mode against the plain version with TF32-rounded operands
+and its 3xTF32 mode against the float32 one (tensor-core summation order;
+a comparison next to its threshold may fall the other way).
 """
 import dataclasses
 import pathlib
@@ -33,8 +38,10 @@ from ai_path_tracer_denoiser_tpu_torch.ops.bvh import build_mesh_bvh
 from ai_path_tracer_denoiser_tpu_torch.ops.vec3 import Vec3
 from ai_path_tracer_denoiser_tpu_torch.render import (assemble_gbuffer, cuda_backend,
                                                       init_render_state, mesh_binned,
-                                                      mesh_kernel_v2p, render)
+                                                      mesh_kernel, mesh_kernel_v2p,
+                                                      mesh_kernel_v3, render)
 from ai_path_tracer_denoiser_tpu_torch.scene import derive_camera, load_scene
+from ai_path_tracer_denoiser_tpu_torch.tools import mm_feasibility
 from ai_path_tracer_denoiser_tpu_torch.utils.device import resolve_device
 
 torch.set_num_threads(2)
@@ -136,6 +143,23 @@ def test_mesh_wrappers_take_the_plain_versions_on_cpu():
         mesh_kernel_v2p.table_ptr(bvh.faces_packed[:, :18], 19, tc.device)
 
 
+def test_experiment_wrappers_take_the_plain_versions_on_cpu():
+    bvh = _soup_bvh(700, 1)
+    o, d, tc = _soup_rays(1024, 2, bvh.super_bounds, "cpu")
+    rays, faces, coeffs = mm_feasibility.probe_inputs(1, "cpu")
+    kernels = (mesh_kernel.KERNEL, mesh_kernel_v3.KERNEL, mm_feasibility.VPU_KERNEL,
+               mm_feasibility.MMA_KERNEL)
+    before = [k.launches for k in kernels]
+    want = mesh_kernel_v2p.mesh_intersect_bvh_v2p_plain(bvh, o, d, tc)
+    assert _all_equal(mesh_kernel.mesh_intersect_bvh(bvh, o, d, tc, lanes=256), want)
+    assert _all_equal(mesh_kernel_v3.mesh_intersect_bvh_v3(bvh, o, d, tc), want)
+    assert torch.equal(mm_feasibility.visit_vpu(rays, faces, 64),
+                       mm_feasibility.visit_vpu_plain(rays, faces))
+    assert torch.equal(mm_feasibility.visit_mma(rays, coeffs, 64, highest=True),
+                       mm_feasibility.visit_mma_plain(rays, coeffs))
+    assert [k.launches for k in kernels] == before
+
+
 def test_entry_points_default_to_the_card(tmp_path):
     """Rendering, training and loading default to the card and raise where
     there is none; none of them drops to the CPU on its own."""
@@ -172,6 +196,9 @@ def test_entry_points_default_to_the_card(tmp_path):
         "cli train": lambda: main(["train", "--data-dir", str(tmp_path / "d"), "--model-dir",
                                    str(tmp_path / "m"), "--log-dir", str(tmp_path / "l")]),
         "cli eval": lambda: main(["eval", "--data-dir", str(tmp_path / "d"), "--model", ckpt]),
+        "cli bench": lambda: main(["bench", str(REPO / "scenes" / "cornell_box.txt"),
+                                   "--res", "32", "--iters", "1"]),
+        "probe": lambda: mm_feasibility.main(["--visits", "64"]),
     }
     if torch.cuda.is_available():
         assert calls["resolve_device"]().type == "cuda"
@@ -274,10 +301,58 @@ def test_mesh_kernels_match_plain_on_card(cuda_device, n_faces):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_faces", [300, 5000])
+def test_tile_and_front_to_back_traversals_match_plain_on_card(cuda_device, n_faces):
+    bvh = _soup_bvh(n_faces, n_faces).to(cuda_device)
+    o, d, tc = _soup_rays(8192 + 37, 3, bvh.super_bounds.cpu().numpy(), cuda_device)
+    want = mesh_kernel_v2p.mesh_intersect_bvh_v2p_plain(bvh, o, d, tc)
+    assert torch.isfinite(want[0]).sum() > 0
+    for kernel, call in (
+            (mesh_kernel.KERNEL, lambda: mesh_kernel.mesh_intersect_bvh(bvh, o, d, tc)),
+            (mesh_kernel.KERNEL, lambda: mesh_kernel.mesh_intersect_bvh(bvh, o, d, tc, lanes=128)),
+            (mesh_kernel.KERNEL, lambda: mesh_kernel.mesh_intersect_bvh(bvh, o, d, tc, lanes=640)),
+            (mesh_kernel_v3.KERNEL, lambda: mesh_kernel_v3.mesh_intersect_bvh_v3(bvh, o, d, tc))):
+        launches = kernel.launches
+        got = call()
+        torch.cuda.synchronize()
+        assert kernel.launches == launches + 1
+        assert _all_equal(got, want)
+    head = slice(0, 1024)
+    sub = (Vec3(*(c[head] for c in o)), Vec3(*(c[head] for c in d)), tc[head])
+    assert _all_equal(mesh_kernel.mesh_intersect_bvh(bvh, *sub, lanes=128),
+                      mesh_kernel.mesh_intersect_bvh_plain(bvh, *sub, lanes=128))
+    assert _all_equal(mesh_kernel_v3.mesh_intersect_bvh_v3(bvh, *sub),
+                      mesh_kernel_v3.mesh_intersect_bvh_v3_plain(bvh, *sub))
+
+
+@pytest.mark.cuda
+def test_visit_kernels_match_plain_on_card(cuda_device):
+    rays, faces, coeffs = mm_feasibility.probe_inputs(0, cuda_device)
+    launches = mm_feasibility.VPU_KERNEL.launches
+    got = mm_feasibility.visit_vpu(rays, faces, 200)
+    torch.cuda.synchronize()
+    assert mm_feasibility.VPU_KERNEL.launches == launches + 1
+    want = mm_feasibility.visit_vpu_plain(rays, faces)
+    assert torch.equal(got, want) and (want[0] < 1e38).sum() > 500
+    for highest, precision in ((False, "tf32"), (True, "float32")):
+        launches = mm_feasibility.MMA_KERNEL.launches
+        got = mm_feasibility.visit_mma(rays, coeffs, 200, highest)
+        torch.cuda.synchronize()
+        assert mm_feasibility.MMA_KERNEL.launches == launches + 1
+        want = mm_feasibility.visit_mma_plain(rays, coeffs, precision=precision)
+        bad = (got[0] - want[0]).abs() > 1e-5 * want[0].abs() + 1e-5
+        assert int(bad.sum()) + int((got[1] != want[1]).sum()) <= 10
+        assert (got[2:] == 0).all() and (want[0] < 1e38).sum() > 500
+    with pytest.raises(ValueError, match="different devices"):
+        mm_feasibility.visit_vpu(rays, faces.cpu(), 64)
+
+
+@pytest.mark.cuda
 def test_mesh_scene_renders_through_the_kernels_on_card(cuda_device):
     scene = _scene("cornell_mesh_torus.txt", cuda_device, depth=4)
     want = render(scene, RenderOptions(mesh_bvh=False), num_iterations=2)[1]
-    for impl, kernel in (("v2p", mesh_kernel_v2p.KERNEL), ("binned", mesh_binned.PAIR_KERNEL)):
+    for impl, kernel in (("v2p", mesh_kernel_v2p.KERNEL), ("binned", mesh_binned.PAIR_KERNEL),
+                         ("v2", mesh_kernel.KERNEL), ("v3", mesh_kernel_v3.KERNEL)):
         launches = kernel.launches
         got = render(scene, RenderOptions(mesh_kernel_impl=impl), num_iterations=2)[1]
         torch.cuda.synchronize()

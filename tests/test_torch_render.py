@@ -115,8 +115,17 @@ def test_backend_routing():
     bf16 = RenderOptions(accum_dtype="bfloat16", backend="pallas")
     with pytest.raises(ValueError):
         _resolve_backend(ts, bf16)
-    with pytest.raises(NotImplementedError):
-        render(ts, RenderOptions(sort_material=True), num_iterations=1)
+    # the three wavefront-only options leave the megakernel for the plain
+    # wavefront instead of raising
+    for flags in (dict(sort_material=True), dict(motion_blur=True),
+                  dict(cache_first_bounce=True, antialias=False)):
+        opts = RenderOptions(**flags)
+        assert not cuda_backend.pallas_eligible(ts, opts)
+        assert _resolve_backend(ts, opts) == "xla"
+        with pytest.raises(ValueError):
+            _resolve_backend(ts, RenderOptions(backend="pallas", **flags))
+    _, g, st = render(ts, RenderOptions(sort_material=True), num_iterations=1)
+    assert st.iteration == 1 and torch.isfinite(g).all()
 
 
 def test_render_work_counts():
