@@ -33,9 +33,10 @@ class RenderOptions:
     # pipeline, which packs rays itself.
     mesh_octant_sort: bool = True
     # Rays per tile of the tile-gated traversal ("v2") on secondary bounces:
-    # its descent-gating granule and CUDA block size, a multiple of 128 up
-    # to 1024.  The other intersections gate per ray, per 128-ray subtile or
-    # not at all and ignore it.
+    # its descent-gating granule and CUDA block size, which "v2" checks is
+    # a multiple of 128 up to 1024 when it runs.  The other intersections
+    # gate per ray, per 128-ray subtile or not at all and ignore it, so any
+    # value is accepted here, as in the JAX package.
     mesh_kernel_lanes: int = 1024
     # With mesh_octant_sort, also sort by an origin-cell Morton major key
     # over mesh_sort_cells^3 cells of the batch's own origin bounds
@@ -97,10 +98,6 @@ class RenderOptions:
         if self.mesh_kernel_impl not in ("auto", "v2", "v2p", "v2s", "v3",
                                          "binned"):
             raise ValueError(f"mesh_kernel_impl={self.mesh_kernel_impl!r}")
-        if (self.mesh_kernel_lanes <= 0 or self.mesh_kernel_lanes % 128
-                or self.mesh_kernel_lanes > 1024):
-            raise ValueError(f"mesh_kernel_lanes={self.mesh_kernel_lanes}: a "
-                             "multiple of 128, at most 1024")
         if self.backend not in ("auto", "xla", "pallas"):
             raise ValueError(f"backend={self.backend!r}")
         if self.pallas_geometry not in ("baked", "operand"):

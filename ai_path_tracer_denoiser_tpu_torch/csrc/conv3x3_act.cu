@@ -1,37 +1,70 @@
 // Fused SAME 3x3 conv + bias + LeakyReLU (+ per-channel affine x*s+t).
 //
-// Replaces the TPU kernel models/conv_kernel.py:_build_kernel_chw of the
-// JAX package (conv3x3_act_chw, impl "pallas2"), which the denoiser's 28
-// convolutions per frame go through at inference and, in training, the
-// forward pass and the input gradient of every conv (slope 1, zero bias,
-// float32 out; the input gradient is this kernel called on the output
-// gradient with the weights flipped and transposed).  Input NHWC
-// (N, H, W, Cin) bfloat16 or float32, weights HWIO (3, 3, Cin, Co) in the
-// input's type, bias/scale/shift float32 (Co,), output (N, H, W, Co)
-// bfloat16 or float32.  bfloat16 products are exact in the tensor cores;
-// float32 inputs go through the 3xTF32 scheme of conv_mma.cuh, which keeps
-// float32 accuracy.  Sums are float32; the epilogue runs in float32 and
+// Replaces the TPU kernel models/conv_kernel.py:_build_kernel_chw of the JAX
+// package (conv3x3_act_chw, impl "pallas2", pl.pallas_call at :287), which
+// the denoiser's 28 convolutions per frame go through at inference and, in
+// training, the forward pass and the input gradient of every conv (slope 1,
+// zero bias, float32 out; the input gradient is this kernel called on the
+// output gradient with the weights flipped and transposed).  Input NHWC
+// (N, H, W, Cin), output (N, H, W, Co) bfloat16 or float32; bias, scale and
+// shift float32 (Co,).  Sums are float32; the epilogue runs in float32 and
 // rounds once at the store.
 //
-// Design (implicit GEMM, M = pixels, N = output channels, K = 9 * Cin):
-// a block owns a 16x16 pixel tile of one image and 32 output channels.  For
-// each step of 16 input channels it stages the tile's 18x18 halo (zero
-// outside the image and past Cin) and the 9 taps' 16x32 weight slices in
-// shared memory; then each of its 8 warps runs, for each tap, 16x16x16
-// tile products for its two tile rows: a tile row of 16 pixels shifted by
-// (dy, dx) is a 16x16 A fragment read straight from the halo (row stride
-// 16 channels), so the 9 taps need no im2col copy and each input element
-// is read from device memory once per output-channel block, not 9 times.
-// The accumulators go through shared memory to a masked epilogue, which
-// handles the ragged pixel and channel edges (any N, H, W, Cin, Co).
+// Bound on the H100: bytes.  The frame's 28 convs move 586 MB (input,
+// weights and output once each: 0.175 ms at 3.35 TB/s) and do 46 G
+// multiply-adds (0.093 ms at 989 TFLOP/s), so the kernel must read its
+// input once, keep copies in flight behind the products, and waste little
+// tensor-core work on padding.
 //
-// Bound on the H100: at the main paths' shapes the tensor-core work is far
-// below the card's rate; the kernel is bound by its loads, which are
-// scalar loads into shared memory with no cp.async/TMA pipelining and no
-// double buffering, by the padding of Cin to 16 and Co to 32, and by
-// grid.z = N * ceil(Co/32) blocks each reading the input again (7 times at
-// Co = 202, the bottleneck's input gradient).  Vector loads, a deeper
-// pipeline and wgmma are the later work.
+// Two kernels, picked by the input's type:
+//
+// * bfloat16 input (every default path): conv3x3_bf16_sm90, implicit GEMM
+//   with M = pixels, N = output channels, K = 9 taps x 16-channel chunks.
+//   A block of one or two warpgroups owns a tile of 64 or 128 output pixels
+//   (8x8, 16x8, ... : the launcher picks the shape that wastes the least of
+//   a ragged image) and N = 8 * NB output channels, NB up to 26 (Co 208).
+//   - Input read once for all output channels: one block covers every
+//     output channel of its tile (Co rounded up to 8, not 32).  Only where
+//     the tiles alone cannot fill the card's 132 SMs (images of 50x50 and
+//     below) are the channels dealt out to several blocks, as the row-band
+//     kernel's launcher does; small images also take 64-pixel tiles.
+//   - Asynchronous 16-byte copies in a ring of three stages: each stage
+//     holds the tile's halo of one 16-channel chunk and the chunk's 9 x 16
+//     x N packed weights (pack_weights_sm90), copied with cp.async while
+//     the products of the chunk before run.  An odd Cin (21 of the frame's
+//     28 input widths are not multiples of 8) puts a pixel's channels off
+//     the 16-byte grid, so each halo pixel copies the 16-byte pieces that
+//     cover its 16 channels from the boundary at or below their start (two
+//     or three pieces; the copy of the tensor's last piece is cut at its
+//     end with cp.async's source size) and the block re-lays them at a
+//     fixed 48-byte pixel stride, zero outside the image and past Cin.
+//     When Cin is a multiple of 8 the pieces are already aligned: they land
+//     in place (zero-filled by the copy itself) and nothing is re-laid.
+//   - Tensor cores: wgmma.mma_async m64nNk16 bf16 x bf16 -> f32.  A comes
+//     from registers, loaded by ldmatrix out of the halo: a tap's (dy, dx)
+//     shift moves A by whole pixels, which a shared-memory A operand's
+//     core-matrix layout could not follow.  B is the tap's 16 x N weight
+//     slice in shared memory, in the no-swizzle K-major core-matrix layout
+//     (conv_sm90.cuh).  The 48-byte pixel stride puts the 8 rows of every
+//     ldmatrix in 8 different groups of 4 banks: no bank conflicts.
+//   - Padding: Co is padded to a multiple of 8 and Cin to 16 (the depth of
+//     one product); a Cin = 3 layer multiplies zeros in 13 of its 16 input
+//     channels, but at 800x800 its bytes, not its products, set its time.
+//   - Epilogue from the accumulator registers: bias, LeakyReLU, affine and
+//     the rounding, in float32, stored straight to the output (channel
+//     pairs when Co is even), masked at the pixel and channel edges.
+//   - What is left looks like latency (no profiler reaches the card): a
+//     block's few chunks wait in series (copy, barrier, products), and the
+//     kernel runs fastest with the most blocks resident.  Each thread finds
+//     its halo pixels once, not per chunk, and the register budget is set
+//     so that three blocks of up to 32 channels (two of up to 104) fit on
+//     an SM.  Over the frame's 28 shapes the
+//     kernel runs at about 15% of the byte bound (PERF.md), its 800x800
+//     layers at 17-29%.
+// * float32 input: conv3x3_tf32_kernel, a 16x16 pixel tile x 32 output
+//   channels per block; the 9 taps are shifted wmma fragments of one halo
+//   tile staged in shared memory (scalar loads), the products 3xTF32
+//   (conv_mma.cuh), which keeps float32 accuracy.
 //
 // Built with default nvcc float semantics (multiply-add contraction on, no
 // fast math); the float32 epilogue differs from the plain version only by
@@ -39,14 +72,288 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <mma.h>
 #include <stdint.h>
 
 #include "conv_mma.cuh"
+#include "conv_sm90.cuh"
 
 using namespace nvcuda;
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// bfloat16 input: wgmma kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 3;       // ring of halo + weight stages
+constexpr int kPixBytes = 48;    // a halo pixel's slot: 16 channels + 8 of slack
+constexpr int kMaxThreads = 256; // two warpgroups
+constexpr int kMaxNB = 26;       // 8-channel groups per block (Co 208)
+// Halo pieces (3 per pixel) per thread: at most 3 * 136 over 128 threads
+// (a 32x2 tile) and 3 * 204 over 256 (32x4).
+constexpr int kItems = 4;
+
+// Pixel index (gy * W + gx) within its image of halo pixel hp, or -1
+// outside the image.
+__device__ __forceinline__ int halo_pixel(int hp, int hw2, int x0, int y0, int H, int W) {
+  const int hy = hp / hw2;
+  const int gy = y0 + hy - 1, gx = x0 + (hp - hy * hw2) - 1;
+  return (gy < 0 || gy >= H || gx < 0 || gx >= W) ? -1 : gy * W + gx;
+}
+
+// Blocks per SM the register budget is set for: an 8-channel group of
+// accumulators is 4 registers, the 9 taps' A fragments 36.
+constexpr int min_blocks(int nb) { return nb <= 4 ? 3 : (nb <= 13 ? 2 : 1); }
+
+template <int NB>
+__global__ void __launch_bounds__(kMaxThreads, min_blocks(NB))
+conv3x3_bf16_sm90(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wp,
+                  const float* __restrict__ bias, const float* __restrict__ aff_s,
+                  const float* __restrict__ aff_t, void* __restrict__ out, int H, int W, int Cin,
+                  int Co, int TW, int TH, int tiles_x, int nb_total, float slope, int has_affine,
+                  int out_f32, int direct) {
+  using namespace conv_sm90;
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int kWBytes = 9 * NB * 256;          // one chunk's weights: 9 taps x 16 x 8NB
+  const int hw2 = TW + 2;
+  const int halo_pix = (TH + 2) * hw2;
+  const int raw_bytes = halo_pix * kPixBytes;
+  const int stage_bytes = raw_bytes + kWBytes;
+  unsigned char* abuf = smem + kStages * stage_bytes;   // the re-laid halo (odd Cin)
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int x0 = (blockIdx.x % tiles_x) * TW, y0 = (blockIdx.x / tiles_x) * TH;
+  const int grp = blockIdx.y, img = blockIdx.z;
+  const long long total = (long long)gridDim.z * H * W * Cin;
+  const int chunks = (Cin + 15) / 16;
+
+  // The halo pieces this thread copies (item i = tid + t * nthreads: pixel
+  // i / 3, piece i % 3, landing at byte 16 i of the stage) and the halo
+  // halves it re-lays (item i: pixel i / 2, channels 8 (i % 2) ..): their
+  // pixels' element offsets in x do not change from chunk to chunk.
+  const long long img0 = (long long)img * H * W;     // the image's first pixel
+  int pix[kItems], rpix[kItems];
+#pragma unroll
+  for (int t = 0; t < kItems; ++t) {
+    const int i = tid + t * nthreads;
+    pix[t] = i < 3 * halo_pix ? halo_pixel(i / 3, hw2, x0, y0, H, W) : -1;
+    rpix[t] = i < 2 * halo_pix ? halo_pixel(i >> 1, hw2, x0, y0, H, W) : -1;
+  }
+
+  // Start the copies of chunk k into stage s.
+  auto start_copies = [&](int k, int s) {
+    const uint32_t raw_s = smem_addr(smem + s * stage_bytes);
+    const int c0 = k * 16;
+    const int nvalid = min(16, Cin - c0);
+#pragma unroll
+    for (int t = 0; t < kItems; ++t) {
+      const int i = tid + t * nthreads;
+      if (i >= 3 * halo_pix) break;
+      const int j = i % 3;
+      const long long p = (img0 + pix[t]) * Cin;
+      if (direct) {             // aligned: two pieces in place, zero-filled
+        if (j == 2) continue;
+        const int bytes = (pix[t] >= 0 && 8 * j < nvalid) ? 16 : 0;
+        cp_async16(raw_s + i * 16, bytes ? x + p + c0 + 8 * j : x, bytes);
+      } else {                  // the pieces covering [e, e + nvalid), re-laid below
+        if (pix[t] < 0) continue;
+        const long long e = p + c0;
+        const long long a = (e & ~7LL) + 8 * j;
+        if (a >= e + nvalid) continue;
+        const long long left = total - a;
+        cp_async16(raw_s + i * 16, x + a, left >= 8 ? 16 : (int)left * 2);
+      }
+    }
+    const uint32_t w_s = raw_s + raw_bytes;
+    const __nv_bfloat16* wk = wp + ((size_t)k * 9 * nb_total + grp * NB) * 128;
+    for (int i = tid; i < 9 * NB * 16; i += nthreads) {
+      const int tap = i / (NB * 16), r = i - tap * (NB * 16);
+      cp_async16(w_s + i * 16, wk + (size_t)tap * nb_total * 128 + r * 8, 16);
+    }
+  };
+
+  // Re-lay chunk k's halo from stage s at the 48-byte pixel stride (odd Cin):
+  // eight channels from 32-bit words, shifted by half a word where the
+  // pixel's channels start on an odd element; zero outside the image and
+  // past Cin.
+  auto relay = [&](int k, int s) {
+    const uint32_t* raw = reinterpret_cast<const uint32_t*>(smem + s * stage_bytes);
+    const int nvalid = min(16, Cin - k * 16);
+#pragma unroll
+    for (int t = 0; t < kItems; ++t) {
+      const int i = tid + t * nthreads;
+      if (i >= 2 * halo_pix) break;
+      const int hp = i >> 1, h = i & 1;
+      uint32_t v[4] = {0u, 0u, 0u, 0u};
+      if (rpix[t] >= 0) {
+        const int e0 = (int)(((img0 + rpix[t]) * Cin) & 7) + 8 * h;
+        const uint32_t* src = raw + hp * (kPixBytes / 4) + (e0 >> 1);
+        uint32_t wd[5];
+#pragma unroll
+        for (int q = 0; q < 5; ++q) wd[q] = src[q];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          v[q] = (e0 & 1) ? __funnelshift_r(wd[q], wd[q + 1], 16) : wd[q];
+          const int c = 8 * h + 2 * q;
+          if (c >= nvalid) v[q] = 0u;
+          else if (c + 1 >= nvalid) v[q] &= 0xFFFFu;
+        }
+      }
+      *reinterpret_cast<uint4*>(abuf + hp * kPixBytes + h * 16) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  };
+
+  // This lane's ldmatrix row: pixel P of the tile, channels 0-7 or 8-15.
+  const int warp = tid >> 5, lane = tid & 31;
+  const int P = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int ty = P / TW;
+  const uint32_t a_off = (ty * hw2 + P - ty * TW) * kPixBytes + (lane >> 4) * 16;
+
+  float acc[NB * 4];
+#pragma unroll
+  for (int i = 0; i < NB * 4; ++i) acc[i] = 0.0f;
+  fence_regs(acc);
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < chunks) start_copies(s, s);
+    cp_async_commit();
+  }
+  for (int k = 0; k < chunks; ++k) {
+    const int s = k % kStages;
+    cp_async_wait<kStages - 2>();      // chunk k has landed (this thread's copies)
+    fence_proxy_async();               // ... and is visible to wgmma's reads of B
+    __syncthreads();                   // everyone's copies; stage k-1 is free
+    if (k + kStages - 1 < chunks) start_copies(k + kStages - 1, (k + kStages - 1) % kStages);
+    cp_async_commit();
+    uint32_t a_base = smem_addr(smem + s * stage_bytes);
+    if (!direct) {
+      relay(k, s);
+      __syncthreads();
+      a_base = smem_addr(abuf);
+    }
+    uint32_t a[9][4];
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+      ldmatrix_x4(a[tap], a_base + a_off + ((tap / 3) * hw2 + tap % 3) * kPixBytes);
+    const uint32_t w_s = smem_addr(smem + s * stage_bytes + raw_bytes);
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const uint32_t wt = w_s + tap * NB * 256;
+#pragma unroll
+      for (int g = 0; g + 4 <= NB; g += 4) wgmma_bf16<4>(acc + 4 * g, a[tap], b_desc(wt + g * 256));
+      if constexpr (NB % 4 != 0)
+        wgmma_bf16<NB % 4>(acc + 4 * (NB - NB % 4), a[tap], b_desc(wt + (NB - NB % 4) * 256));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+
+  // Epilogue from the accumulators: rows lane/4 and lane/4 + 8 of the warp's
+  // 16 pixels, channels 8j + 2(lane%4) and the one after.
+  const int co0 = grp * NB * 8 + 2 * (lane & 3);
+  size_t row[2];
+  bool live[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int p = warp * 16 + (lane >> 2) + 8 * half;
+    const int py = y0 + p / TW, px = x0 + p % TW;
+    live[half] = py < H && px < W;
+    row[half] = ((size_t)(img * H + py) * W + px) * Co;
+  }
+  const bool pairs = !(Co & 1);     // channel pairs stay aligned for one store
+#pragma unroll
+  for (int j = 0; j < NB; ++j) {
+    const int c = co0 + 8 * j;
+    if (c >= Co) continue;
+    const bool two = c + 1 < Co;
+    float bq[2], sq[2] = {1.0f, 1.0f}, tq[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int o = two ? c + q : c;
+      bq[q] = bias[o];
+      if (has_affine) {
+        sq[q] = aff_s[o];
+        tq[q] = aff_t[o];
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (!live[half]) continue;
+      float v[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float y = acc[4 * j + 2 * half + q] + bq[q];
+        y = y >= 0.0f ? y : y * slope;
+        v[q] = has_affine ? y * sq[q] + tq[q] : y;
+      }
+      const size_t idx = row[half] + c;
+      if (out_f32) {
+        float* o = static_cast<float*>(out) + idx;
+        if (two && pairs) {
+          *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+        } else {
+          o[0] = v[0];
+          if (two) o[1] = v[1];
+        }
+      } else {
+        __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + idx;
+        if (two && pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v[0], v[1]);
+        } else {
+          o[0] = __float2bfloat16_rn(v[0]);
+          if (two) o[1] = __float2bfloat16_rn(v[1]);
+        }
+      }
+    }
+  }
+}
+
+template <int NB>
+int launch_bf16(const void* x, const void* wp, const float* bias, const float* aff_s,
+                const float* aff_t, void* out, int N, int H, int W, int Cin, int Co, int TW,
+                int nwg, int nb_total, float slope, int has_affine, int out_f32,
+                cudaStream_t st) {
+  const int TH = 64 * nwg / TW;
+  const int direct = Cin % 8 == 0;
+  const size_t raw = (size_t)(TH + 2) * (TW + 2) * kPixBytes;
+  const size_t bytes = kStages * (raw + 9 * NB * 256) + (direct ? 0 : raw);
+  auto kernel = conv3x3_bf16_sm90<NB>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (W + TW - 1) / TW;
+  dim3 grid(tiles_x * ((H + TH - 1) / TH), nb_total / NB, N);
+  if (grid.y > 65535u || grid.z > 65535u) return (int)cudaErrorInvalidConfiguration;
+  kernel<<<grid, 128 * nwg, bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wp), bias, aff_s,
+      aff_t, out, H, W, Cin, Co, TW, TH, tiles_x, nb_total, slope, has_affine, out_f32, direct);
+  return (int)cudaGetLastError();
+}
+
+// The B operand's layout (pack_weights_sm90 of models/conv_kernel.py):
+// wp[k][t][j][h][r][c] = w[t][16k + 8h + c][8j + r], zero past Cin and Co;
+// one thread per element of wp.
+__global__ void pack_weights_sm90(const __nv_bfloat16* __restrict__ w,
+                                  __nv_bfloat16* __restrict__ wp, int Cin, int Co, int n_cols,
+                                  int n) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  const int c = e & 7, r = (e >> 3) & 7, h = (e >> 6) & 1;
+  const int rest = e >> 7;                   // (k * 9 + t) * (n_cols / 8) + j
+  const int j = rest % (n_cols / 8), kt = rest / (n_cols / 8);
+  const int t = kt % 9, k = kt / 9;
+  const int ci = 16 * k + 8 * h + c, o = 8 * j + r;
+  wp[e] = (ci < Cin && o < Co) ? w[((size_t)t * Cin + ci) * Co + o] : __float2bfloat16_rn(0.0f);
+}
+
+// ---------------------------------------------------------------------------
+// float32 input: 3xTF32 wmma kernel
+// ---------------------------------------------------------------------------
 
 constexpr int kTileH = 16;
 constexpr int kTileW = 16;
@@ -63,7 +370,7 @@ constexpr int kStageElems = kTileH * kTileW * kBn;    // 8192 floats
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
+conv3x3_tf32_kernel(const T* __restrict__ x, const T* __restrict__ w,
                    const float* __restrict__ bias, const float* __restrict__ aff_s,
                    const float* __restrict__ aff_t, void* __restrict__ out, int H, int W,
                    int Cin, int Co, int co_blocks, float slope, int has_affine, int out_f32) {
@@ -158,25 +465,56 @@ conv3x3_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 }  // namespace
 
-// x (N, H, W, Cin) and w (3, 3, Cin, Co) are float32 when in_f32, else
-// bfloat16; out (N, H, W, Co) is float32 when out_f32, else bfloat16.
+// w (3, 3, Cin, Co) bfloat16 -> wp (ceil(Cin/16), 9, n_cols/8, 2, 8, 8), the
+// layout conv3x3_bf16_sm90 reads its weights in.  Returns a CUDA error code.
+extern "C" int aptd_conv3x3_pack_weights(const void* w, void* wp, int Cin, int Co, int n_cols,
+                                         void* stream) {
+  if (Cin <= 0 || Co <= 0 || n_cols % 8 != 0 || n_cols < Co) return (int)cudaErrorInvalidValue;
+  const int n = (Cin + 15) / 16 * 9 * n_cols * 16;
+  pack_weights_sm90<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(wp), Cin, Co, n_cols,
+      n);
+  return (int)cudaGetLastError();
+}
+
+// bfloat16 input (in_f32 = 0): x (N, H, W, Cin) 16-byte aligned, w the
+// (ceil(Cin/16), 9, nb_total, 2, 8, 8) packing of pack_weights_sm90; a block
+// takes `nb` groups of 8 output channels (one of 1-8, 10, 11, 13, 15, 19, 26;
+// nb_total a multiple of nb and 8 * nb_total >= Co) of a tile of 64 * nwg
+// pixels, tw wide (8, 16 or 32).  float32 input: w (3, 3, Cin, Co) float32;
+// tw, nwg, nb, nb_total are not read.  out (N, H, W, Co) is float32 when
+// out_f32, else bfloat16.  Returns a CUDA error code; cudaErrorInvalidValue
+// (1) for a plan the kernel does not take.
 extern "C" int aptd_conv3x3_act(const void* x, const void* w, const float* bias,
                                 const float* aff_s, const float* aff_t, void* out, int N, int H,
                                 int W, int Cin, int Co, float slope, int has_affine, int in_f32,
-                                int out_f32, void* stream) {
-  const int co_blocks = (Co + kBn - 1) / kBn;
-  dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, N * co_blocks);
+                                int out_f32, int tw, int nwg, int nb, int nb_total,
+                                void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || Co <= 0) return (int)cudaGetLastError();
-  if (grid.y > 65535u || grid.z > 65535u) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = (cudaStream_t)stream;
   if (in_f32) {
-    conv3x3_act_kernel<float><<<grid, kThreads, 0, st>>>(
+    const int co_blocks = (Co + kBn - 1) / kBn;
+    dim3 grid((W + kTileW - 1) / kTileW, (H + kTileH - 1) / kTileH, N * co_blocks);
+    if (grid.y > 65535u || grid.z > 65535u) return (int)cudaErrorInvalidConfiguration;
+    conv3x3_tf32_kernel<float><<<grid, kThreads, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), bias, aff_s, aff_t, out, H,
         W, Cin, Co, co_blocks, slope, has_affine, out_f32);
-  } else {
-    conv3x3_act_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), bias, aff_s,
-        aff_t, out, H, W, Cin, Co, co_blocks, slope, has_affine, out_f32);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  if ((nwg != 1 && nwg != 2) || (tw != 8 && tw != 16 && tw != 32) || nb <= 0 ||
+      nb > kMaxNB || nb_total % nb != 0 || 8 * nb_total < Co || (long long)H * W > INT_MAX ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+#define APTD_CONV_NB(n) \
+  case n:               \
+    return launch_bf16<n>(x, w, bias, aff_s, aff_t, out, N, H, W, Cin, Co, tw, nwg, nb_total, \
+                          slope, has_affine, out_f32, st);
+  switch (nb) {
+    APTD_CONV_NB(1) APTD_CONV_NB(2) APTD_CONV_NB(3) APTD_CONV_NB(4) APTD_CONV_NB(5)
+    APTD_CONV_NB(6) APTD_CONV_NB(7) APTD_CONV_NB(8) APTD_CONV_NB(10) APTD_CONV_NB(11)
+    APTD_CONV_NB(13) APTD_CONV_NB(15) APTD_CONV_NB(19) APTD_CONV_NB(26)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef APTD_CONV_NB
 }

@@ -5,10 +5,14 @@ Two kernels, as in the JAX package, with its entry points' names and
 arguments and the activation channels-last:
 
 * ``conv3x3_act_chw`` (impl "pallas2"): x (H, W, C) or (N, H, W, C) ->
-  (..., Co).  On the card it launches csrc/conv3x3_act.cu, a 16x16 pixel
-  tile x 32 output channels per block; bfloat16 or float32 input, float32
-  accumulation, bfloat16 or float32 output.  Training uses it for the
-  conv's forward pass and input gradient (models/layers.py).
+  (..., Co).  On the card it launches csrc/conv3x3_act.cu: for bfloat16
+  input a Hopper kernel (asynchronous copies, wgmma) in which a block
+  covers a tile of 64 or 128 pixels and every output channel, with the
+  weights packed by ``pack_weights_sm90`` and the launch planned by
+  ``conv_plan``; for float32 input a 16x16 pixel tile x 32 output channels
+  per block in 3xTF32.  float32 accumulation, bfloat16 or float32 output.
+  Training uses it for the conv's forward pass and input gradient
+  (models/layers.py).
 * ``conv3x3_act`` (impl "pallas"): the row-band kernel
   csrc/conv3x3_rows.cu, which stages a band of rows once for all taps and
   all output channels and takes the weights packed by ``pack_weights``;
@@ -16,6 +20,8 @@ arguments and the activation channels-last:
 
 On CPU tensors each wrapper runs its plain PyTorch version
 (``conv3x3_act_plain``: nine shifted float32 matrix products;
+``conv3x3_act_packed_plain`` computes the same from the packed weights, as
+the bfloat16 kernel reads them;
 ``conv3x3_act_rows_plain``: the row operand times the packed weights, three
 shifted slices added).  On a CUDA tensor a wrapper launches its kernel or
 raises.  The kernels' designs and what bounds them are described at the top
@@ -24,7 +30,9 @@ of their sources.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from collections import OrderedDict
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,7 +46,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.aptd_conv3x3_act.restype = i
     lib.aptd_conv3x3_act.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                     ctypes.c_float, i, i, i, p]
+                                     ctypes.c_float, i, i, i, i, i, i, i, p]
+    lib.aptd_conv3x3_pack_weights.restype = i
+    lib.aptd_conv3x3_pack_weights.argtypes = [p, p, i, i, i, p]
 
 
 def _declare_rows(lib: ctypes.CDLL) -> None:
@@ -49,7 +59,7 @@ def _declare_rows(lib: ctypes.CDLL) -> None:
 
 
 KERNEL = CudaKernel("conv3x3_act", "conv3x3_act.cu", declare=_declare,
-                    headers=("conv_mma.cuh",))
+                    headers=("conv_mma.cuh", "conv_sm90.cuh"))
 ROWS_KERNEL = CudaKernel("conv3x3_rows", "conv3x3_rows.cu",
                          declare=_declare_rows, headers=("conv_mma.cuh",))
 
@@ -92,6 +102,144 @@ def conv3x3_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
             part = xp[:, dy:dy + h, dx:dx + wd].reshape(n * h * wd, c) @ wf[dy, dx]
             acc = part if acc is None else acc + part
     y = _epilogue(acc.reshape(n, h, wd, co), b, slope, affine)
+    y = y.to(_out_dtype(x, out_dtype))
+    return y if x.dim() == 4 else y[0]
+
+
+# ---------------------------------------------------------------------------
+# The bfloat16 tile kernel's weight layout and launch plan
+# ---------------------------------------------------------------------------
+
+# Output-channel groups of 8 that the kernel is built for (csrc/conv3x3_act.cu)
+BLOCK_GROUPS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 13, 15, 19, 26)
+SMS = 132                # the H100's SMs: the least number of blocks a launch should have
+# (width, height) of a block's pixel tile, for one and for two warpgroups
+TILE_SHAPES = {1: ((8, 8), (16, 4), (32, 2)), 2: ((16, 8), (8, 16), (32, 4))}
+
+
+class ConvPlan(NamedTuple):
+    """How the bfloat16 tile kernel covers one call: ``nwg`` warpgroups per
+    block on a ``tw`` x ``th`` pixel tile, ``nb`` groups of 8 output channels
+    per block, ``groups`` blocks over the channels of a tile."""
+    nwg: int
+    tw: int
+    th: int
+    nb: int
+    groups: int
+    blocks: int
+
+    @property
+    def n_cols(self) -> int:
+        """Output channels of the packed weights: groups * nb * 8 >= Co."""
+        return self.groups * self.nb * 8
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def conv_plan(n: int, h: int, w: int, co: int) -> ConvPlan:
+    """The launch of the bfloat16 tile kernel for an (n, h, w, .) -> co call.
+
+    Images of 132 x 128 pixels or more take two-warpgroup blocks of 128
+    pixels, smaller ones 64; of the tile shapes the one with the fewest
+    tiles (then the smallest halo) wins.  A block covers all ceil(co/8)
+    groups of 8 output channels, unless that leaves fewer than ``SMS``
+    blocks: then the channels are dealt out to the fewest blocks per tile
+    that reach ``SMS`` (or to one group per block).
+    """
+    nwg = 2 if h * w >= SMS * 128 else 1
+    tw, th = min(TILE_SHAPES[nwg], key=lambda t: (_cdiv(w, t[0]) * _cdiv(h, t[1]),
+                                                 (t[0] + 2) * (t[1] + 2)))
+    tiles = n * _cdiv(w, tw) * _cdiv(h, th)
+    need = _cdiv(co, 8)
+    for groups in range(_cdiv(need, BLOCK_GROUPS[-1]), need + 1):
+        nb = next(g for g in BLOCK_GROUPS if g >= _cdiv(need, groups))
+        groups = _cdiv(need, nb)
+        if tiles * groups >= SMS:
+            break
+    return ConvPlan(nwg, tw, th, nb, groups, tiles * groups)
+
+
+def pack_weights_sm90(w: torch.Tensor, n_cols: Optional[int] = None) -> torch.Tensor:
+    """(3, 3, C, Co) conv weights -> (ceil(C/16), 9, n_cols/8, 2, 8, 8).
+
+    The bfloat16 tile kernel's B operand: for each 16-channel chunk k and
+    tap t = 3 dy + dx, the 16 x n_cols slice in core matrices of 8 output x
+    8 input channels, input channels contiguous:
+    packed[k, t, j, h, r, c] = w[dy, dx, 16k + 8h + c, 8j + r], zero past C
+    and past Co.  ``n_cols`` (a multiple of 8, default Co rounded up to 8)
+    is ``ConvPlan.n_cols``.
+    """
+    _, _, c, co = w.shape
+    n_cols = _cdiv(co, 8) * 8 if n_cols is None else n_cols
+    if n_cols % 8 or n_cols < co:
+        raise ValueError(f"n_cols={n_cols}: a multiple of 8, at least {co}")
+    kc = _cdiv(c, 16)
+    wp = F.pad(w, (0, n_cols - co, 0, 16 * kc - c))
+    wp = wp.reshape(9, kc, 2, 8, n_cols // 8, 8)             # t, k, h, c, j, r
+    return wp.permute(1, 0, 4, 2, 5, 3).contiguous()
+
+
+# Packed weights of recent calls: the denoiser's 28 layers call with the
+# same weight tensors every frame.  An entry is found by the tensor's
+# identity and version counter (an in-place update misses) and holds the
+# tensor, so its storage cannot pass to another tensor while cached.  On a
+# miss the card packs them in one launch of the packing kernel beside the
+# conv kernel (csrc/conv3x3_act.cu:pack_weights_sm90, the layout of
+# ``pack_weights_sm90``).
+_PACKED: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = OrderedDict()
+_PACKED_ENTRIES = 64
+
+
+def _packed_weights(w: torch.Tensor, dtype: torch.dtype, dev: torch.device,
+                    n_cols: int) -> torch.Tensor:
+    key = (id(w), w._version, dtype, dev, n_cols)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0] is w:
+        _PACKED.move_to_end(key)
+        return hit[1]
+    wd = w.detach().to(device=dev, dtype=dtype).contiguous()
+    c, co = wd.shape[2:]
+    wp = torch.empty((_cdiv(c, 16), 9, n_cols // 8, 2, 8, 8), dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        rc = KERNEL.lib().aptd_conv3x3_pack_weights(
+            wd.data_ptr(), wp.data_ptr(), c, co, n_cols, torch.cuda.current_stream().cuda_stream)
+    check(rc, "conv3x3_act weight packing")
+    _PACKED[key] = (w, wp)
+    if len(_PACKED) > _PACKED_ENTRIES:
+        _PACKED.popitem(last=False)
+    return wp
+
+
+def unpack_weights_sm90(wp: torch.Tensor, c: int, co: int) -> torch.Tensor:
+    """The inverse of ``pack_weights_sm90``: -> (3, 3, c, co)."""
+    kc, _, nj = wp.shape[:3]
+    w = wp.permute(1, 0, 3, 5, 2, 4).reshape(3, 3, 16 * kc, 8 * nj)
+    return w[:, :, :c, :co]
+
+
+def conv3x3_act_packed_plain(x: torch.Tensor, wp: torch.Tensor, b: torch.Tensor,
+                             slope: float, affine: Optional[dict] = None,
+                             out_dtype=None) -> torch.Tensor:
+    """The conv computed from the packed weights as the bfloat16 tile kernel
+    reads them: for each 16-channel chunk and tap, the shifted input's chunk
+    (zero past C) times the chunk's 16 x n_cols B operand (float32 products
+    and sums), then bias, LeakyReLU, affine on the first Co = len(b)
+    channels, rounded once to the output dtype."""
+    xb = x if x.dim() == 4 else x[None]
+    n, h, wd, c = xb.shape
+    kc, _, nj = wp.shape[:3]
+    co = b.shape[0]
+    xp = F.pad(xb.to(torch.float32), (0, 16 * kc - c, 1, 1, 1, 1))
+    bmat = wp.to(torch.float32).permute(0, 1, 3, 5, 2, 4).reshape(kc, 9, 16, 8 * nj)
+    acc = torch.zeros((n * h * wd, 8 * nj), dtype=torch.float32, device=x.device)
+    for k in range(kc):
+        for t in range(9):
+            a = xp[:, t // 3:t // 3 + h, t % 3:t % 3 + wd, 16 * k:16 * k + 16]
+            acc += a.reshape(-1, 16) @ bmat[k, t]
+    y = _epilogue(acc[:, :co].reshape(n, h, wd, co), b, slope, affine)
     y = y.to(_out_dtype(x, out_dtype))
     return y if x.dim() == 4 else y[0]
 
@@ -143,7 +291,15 @@ def conv3x3_act_chw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"weights {tuple(w.shape)} do not match {c} channels")
     co = w.shape[-1]
     dev = x.device
-    wk = w.to(device=dev, dtype=x.dtype).contiguous()
+    f32_in = x.dtype == torch.float32
+    if f32_in:
+        plan = None
+        wk = w.to(device=dev, dtype=x.dtype).contiguous()
+    else:
+        plan = conv_plan(n, h, wd, co)
+        wk = _packed_weights(w, x.dtype, dev, plan.n_cols)
+        if x.data_ptr() % 16:            # the kernel's copies start on 16-byte boundaries
+            x = x.clone()
     bias, s, t = _epilogue_vectors(b, affine, co, dev)
     odt = _out_dtype(x, out_dtype)
     if odt not in (torch.bfloat16, torch.float32):
@@ -154,8 +310,9 @@ def conv3x3_act_chw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         rc = lib.aptd_conv3x3_act(
             x.data_ptr(), wk.data_ptr(), bias.data_ptr(), s.data_ptr(),
             t.data_ptr(), out.data_ptr(), n, h, wd, c, co, float(slope),
-            int(affine is not None), int(x.dtype == torch.float32),
-            int(odt == torch.float32),
+            int(affine is not None), int(f32_in), int(odt == torch.float32),
+            *((0, 0, 0, 0) if plan is None else
+              (plan.tw, plan.nwg, plan.nb, plan.groups * plan.nb)),
             torch.cuda.current_stream().cuda_stream)
     check(rc, "conv3x3_act kernel")
     KERNEL.launches += 1

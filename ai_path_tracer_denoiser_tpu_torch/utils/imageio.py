@@ -2,7 +2,10 @@
 
 ``save_png_scaled`` is image::savePNG_scaled (image.cpp:41-58): clamp to
 [0, 1], scale by 255, write 8-bit.  The encoder is self-contained (stdlib
-zlib, filter type 0 on every row); ``read_png`` decodes what it writes.
+zlib, filter type 0 on every row).  ``read_png`` decodes any 8-bit
+non-interlaced PNG (all five row filters; gray, gray+alpha, RGB, RGBA) and
+returns RGB, as the JAX package's ``read_png`` does through PIL's
+``convert("RGB")``.
 """
 from __future__ import annotations
 
@@ -50,11 +53,49 @@ def save_png_scaled(path: str, pixels: np.ndarray) -> str:
     return save_png(path, arr)
 
 
-def read_png(path: str) -> np.ndarray:
-    """PNG written by ``save_png`` -> uint8 (H, W, C).
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
-    Decodes 8-bit, non-interlaced images whose rows all use filter type 0,
-    which is what this module writes; raises on anything else.
+
+def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters (None, Sub, Up, Average, Paeth) of the
+    decompressed scanlines -> uint8 (H, W * bpp)."""
+    rows = raw.reshape(h, w * bpp + 1)
+    out = np.zeros((h, w * bpp), np.int32)
+    prev = np.zeros(w * bpp, np.int32)
+    for y in range(h):
+        ftype, line = rows[y, 0], rows[y, 1:].astype(np.int32)
+        if ftype == 0:
+            cur = line
+        elif ftype == 1:           # Sub: running sum per channel along the row
+            cur = np.cumsum(line.reshape(w, bpp), axis=0).reshape(-1)
+        elif ftype == 2:           # Up
+            cur = line + prev
+        elif ftype in (3, 4):      # Average, Paeth: pixel by pixel, channels at once
+            cur = np.zeros(w * bpp, np.int32)
+            left = np.zeros(bpp, np.int32)
+            up_left = np.zeros(bpp, np.int32)
+            for x in range(w):
+                sl = slice(x * bpp, (x + 1) * bpp)
+                up = prev[sl]
+                pred = (left + up) // 2 if ftype == 3 else _paeth(left, up, up_left)
+                left = (line[sl] + pred) & 0xFF
+                cur[sl], up_left = left, up
+        else:
+            raise ValueError(f"PNG row filter {ftype} does not exist")
+        prev = cur & 0xFF
+        out[y] = prev
+    return out.astype(np.uint8)
+
+
+def read_png(path: str) -> np.ndarray:
+    """8-bit non-interlaced PNG -> uint8 (H, W, 3).
+
+    Any row filter; gray is replicated to three channels and alpha is
+    dropped, as PIL's ``convert("RGB")`` does.  Raises on other bit depths,
+    interlacing and palette images.
     """
     with open(path, "rb") as f:
         data = f.read()
@@ -69,7 +110,7 @@ def read_png(path: str) -> np.ndarray:
         if tag == b"IHDR":
             w, h, depth, color_type, _, _, interlace = struct.unpack(
                 ">IIBBBBB", payload)
-            if depth != 8 or interlace != 0:
+            if depth != 8 or interlace != 0 or color_type not in (0, 2, 4, 6):
                 raise ValueError(f"{path}: unsupported PNG layout")
             channels = {0: 1, 2: 3, 4: 2, 6: 4}[color_type]
         elif tag == b"IDAT":
@@ -77,8 +118,8 @@ def read_png(path: str) -> np.ndarray:
         elif tag == b"IEND":
             break
         pos += 12 + length
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
-        h, w * channels + 1)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: filtered rows are not supported")
-    return rows[:, 1:].reshape(h, w, channels).copy()
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    img = _unfilter(raw, h, w, channels).reshape(h, w, channels)
+    if channels <= 2:                      # gray (+ alpha): replicate the gray
+        return np.repeat(img[..., :1], 3, axis=-1)
+    return img[..., :3].copy()

@@ -28,11 +28,15 @@ through `interactive` (frames equal to the per-ray traversal's bit for bit,
 cache and motion blur; the three traversals timed side by side on a sorted
 and an unsorted frame; and the visit-cost probe
 (`tools/mm_feasibility.py`: the scalar and the tensor-core visit kernel
-against their plain versions, then microseconds per visit).  The conv kernels are checked on the frame's 28
-shapes (bfloat16, float32 and batched input; the row-band kernel also on a
-zero-bordered input) and the conv's autograd on the train step's 28 shapes
-against the plain backward pass and `F.conv2d`'s.  It checks that every path
-went through its kernels with the launch counts it computes itself, that the
+against their plain versions, then microseconds per visit).  The conv
+kernels are checked on the frame's 28 shapes (bfloat16, float32 and batched
+input; the row-band kernel also on a zero-bordered input), the tile kernel
+also at shapes the frame never reaches (Co = 202, 3 -> 3, ragged widths, a
+batch of 4), and the conv's autograd on the train step's 28 shapes against
+the plain backward pass and `F.conv2d`'s; the conv kernels are timed by
+CUDA graph replay (device time) beside the events-around-calls time.  It
+checks that every path went through its kernels with the launch counts it
+computes itself, that the
 loss on a fixed batch is finite and falls, that the checkpoint reloads to the
 same loss and that the frames are finite and decode, and times each kernel beside
 its plain version, the least time the card could take (its bound) and,
@@ -101,6 +105,33 @@ def time_ms(fn, reps, warmup=2):
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Milliseconds of device time per call of ``fn``: ``reps`` calls
+    captured in one CUDA graph and replayed between two events, so the
+    host's dispatch between calls is not counted."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # warm up off the capture
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -308,6 +339,37 @@ def main():
                     f"conv check {key} at {name}: max abs err {err}")
         conv_rows.append({"layer": name, "shape": [r, wd, cin, co],
                           "affine": aff is not None, "x": x, "conv": conv, "aff": aff})
+    # the tile kernel at shapes the frame's forward convs never reach, in
+    # bfloat16 and float32 out: Co = 202 (the input gradient of enc5.conv2 and
+    # bottleneck.conv2), Co = Cin = 3, widths that are no multiple of the
+    # pixel tile, a batch of 4
+    stress = [("enc5.conv2 dgrad", 0, 50, 50, 101, 202),
+              ("bottleneck.conv2 dgrad", 0, 25, 25, 101, 202),
+              ("3 -> 3", 0, 64, 64, 3, 3), ("ragged 37x53", 0, 37, 53, 43, 57),
+              ("ragged 800x64", 0, 800, 64, 64, 3), ("batch of 4", 4, 100, 100, 57, 76),
+              ("batch of 4, dgrad", 4, 25, 25, 101, 202)]
+    errs.update({"k2_stress_bf16": 0.0, "k2_stress_f32out": 0.0})
+    for name, n_img, r, wd, cin, co in stress:
+        x = torch.randn(((n_img,) if n_img else ()) + (r, wd, cin), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        w = (torch.randn((3, 3, cin, co), generator=gen, device=dev)
+             * (2.0 / (9 * cin)) ** 0.5).to(torch.bfloat16)
+        b = torch.randn(co, generator=gen, device=dev) * 0.1
+        aff = {"s": torch.rand(co, generator=gen, device=dev) + 0.5,
+               "t": torch.randn(co, generator=gen, device=dev) * 0.1}
+        for key, od in (("k2_stress_bf16", None), ("k2_stress_f32out", "float32")):
+            got = conv_kernel.conv3x3_act_chw(x, w, b, 0.1, aff, od)
+            want = conv_kernel.conv3x3_act_plain(x, w, b, 0.1, aff, od)
+            ok, err = within(got, want, od is not None)
+            errs[key] = max(errs[key], err)
+            require(got.shape == want.shape and got.dtype == want.dtype and ok,
+                    f"conv check {key} at {name}: max abs err {err}")
+        # the card's weight packing (a fresh tensor misses the cache) against
+        # the plain packing, element for element
+        n_cols = conv_kernel.conv_plan(max(n_img, 1), r, wd, co).n_cols
+        require(torch.equal(conv_kernel._packed_weights(w.clone(), torch.bfloat16, dev, n_cols),
+                            conv_kernel.pack_weights_sm90(w, n_cols)),
+                f"weight packing on the card differs from pack_weights_sm90 at {name}")
     # the row-band kernel on a zero-bordered input (enc1.conv2: 64 -> 32, affine)
     name, r, conv, aff = shapes[1]
     x = conv_rows[1]["x"]
@@ -320,9 +382,11 @@ def main():
     k2_err, k3_err = errs["k2_bf16"], errs["k3_bf16"]
     emit({"phase": "conv_check", "shapes": len(shapes), "max_abs_err": errs,
           "checks": "tile kernel (K2): bf16 in/out, bf16 in f32 out, f32 in/out, batch "
-                    "of 2; row-band kernel (K3): bf16, f32 in/out, each against its own "
-                    "plain version, K3 also against K2's plain version and once on a "
-                    "pre-padded input",
+                    "of 2 at the 28 frame shapes; bf16 in, bf16 and f32 out at "
+                    f"{[st[0] for st in stress]}, and its weight packing on the card bit for "
+                    "bit against pack_weights_sm90 there; row-band kernel (K3): bf16, f32 in/out, "
+                    "each against its own plain version, K3 also against K2's plain "
+                    "version and once on a pre-padded input",
           "tolerance": "bf16 out |k-p| <= 1e-2 + 1.6e-2|p| (one bf16 rounding "
                        "step); f32 out |k-p| <= 1e-3 + 1e-3|p| (summation order)"})
 
@@ -368,9 +432,12 @@ def main():
           "segments": plain_state["s"].segments, "bytes": n_bytes, "ops": ops})
 
     # Both conv kernels per shape of the frame, side by side, beside their
-    # plain versions, the bound and F.conv2d.
+    # plain versions, the bound and F.conv2d: device time per call (graph
+    # replay); call_ms are events around calls made back to back, which
+    # count the host's dispatch where it is slower than the card.
     conv_sum = {k: 0.0 for k in ("ms", "rows_ms", "plain_ms", "rows_plain_ms",
-                                 "library_ms", "bound_ms", "bytes_s", "ops_s")}
+                                 "library_ms", "call_ms", "rows_call_ms", "bound_ms",
+                                 "bytes_s", "ops_s")}
     per_shape = []
     for row in conv_rows:
         x, conv, aff = row["x"], row["conv"], row["aff"]
@@ -380,27 +447,39 @@ def main():
         wn = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
         bn = b.to(torch.bfloat16)
         nb, macs = conv_kernel.conv_work(r, wd, cin, co)
-        t = {"ms": time_ms(lambda: conv_kernel.conv3x3_act_chw(x, w, b, 0.1, aff), 20),
-             "rows_ms": time_ms(lambda: conv_kernel.conv3x3_act(x, w, b, 0.1, aff), 20),
-             "plain_ms": time_ms(lambda: conv_kernel.conv3x3_act_plain(x, w, b, 0.1, aff), 5),
-             "rows_plain_ms": time_ms(
+        t = {"ms": graph_ms(lambda: conv_kernel.conv3x3_act_chw(x, w, b, 0.1, aff), 20),
+             "rows_ms": graph_ms(lambda: conv_kernel.conv3x3_act(x, w, b, 0.1, aff), 20),
+             "plain_ms": graph_ms(lambda: conv_kernel.conv3x3_act_plain(x, w, b, 0.1, aff), 5),
+             "rows_plain_ms": graph_ms(
                  lambda: conv_kernel.conv3x3_act_rows_plain(x, w, b, 0.1, aff), 5),
-             "library_ms": time_ms(lambda: F.conv2d(xn, wn, bn, padding=1), 20),
+             "library_ms": graph_ms(lambda: F.conv2d(xn, wn, bn, padding=1), 20),
+             "call_ms": time_ms(lambda: conv_kernel.conv3x3_act_chw(x, w, b, 0.1, aff), 20),
+             "rows_call_ms": time_ms(lambda: conv_kernel.conv3x3_act(x, w, b, 0.1, aff), 20),
              "bound_ms": bound_ms(nb, 2 * macs, BF16_FLOPS)[0],
              "bytes_s": nb / HBM_BPS, "ops_s": 2 * macs / BF16_FLOPS}
         for k, v in t.items():
             conv_sum[k] += v
+        plan = conv_kernel.conv_plan(1, r, wd, co)
         per_shape.append({"layer": row["layer"], "shape": row["shape"],
                           "affine": row["affine"],
-                          **{k: v for k, v in t.items() if k.endswith("_ms") or k == "ms"}})
+                          **{k: v for k, v in t.items() if k.endswith("_ms") or k == "ms"},
+                          "pct_of_bound": 100 * t["bound_ms"] / t["ms"],
+                          "rows_pct_of_bound": 100 * t["bound_ms"] / t["rows_ms"],
+                          "blocks": plan.blocks, "block_channels": 8 * plan.nb,
+                          "channel_groups": plan.groups, "tile": [plan.tw, plan.th]})
     conv_bound_by = "bytes" if conv_sum["bytes_s"] >= conv_sum["ops_s"] else "operations"
     emit({"phase": "conv_timing", "card": smi, "per_shape": per_shape,
+          "frame_pct_of_bound": 100 * conv_sum["bound_ms"] / conv_sum["ms"],
+          "frame_rows_pct_of_bound": 100 * conv_sum["bound_ms"] / conv_sum["rows_ms"],
           "frame_ms": conv_sum["ms"], "frame_rows_ms": conv_sum["rows_ms"],
           "frame_plain_ms": conv_sum["plain_ms"],
           "frame_rows_plain_ms": conv_sum["rows_plain_ms"],
           "frame_library_ms": conv_sum["library_ms"], "frame_bound_ms": conv_sum["bound_ms"],
+          "frame_call_ms": conv_sum["call_ms"], "frame_rows_call_ms": conv_sum["rows_call_ms"],
           "bound_by": conv_bound_by,
-          "columns": "ms = tile kernel (K2), rows_ms = row-band kernel (K3)",
+          "columns": "ms = tile kernel (K2), rows_ms = row-band kernel (K3): device time "
+                     "per call, CUDA graph replay; call_ms = CUDA events around calls back "
+                     "to back (the host's dispatch included where it is slower)",
           "library_call": "F.conv2d(bf16, channels_last, bias) -- conv + bias only"})
     del conv_rows
 
@@ -476,6 +555,7 @@ def main():
                 "float32": {"y": 0.0, "dx": 0.0, "dw": 0.0, "dx_lib": 0.0, "dw_lib": 0.0}}
     grad_rows = []
     grad_sum = {k: 0.0 for k in ("fwd_ms", "dgrad_ms", "wgrad_ms", "library_fwd_bwd_ms",
+                                 "fwd_device_ms", "dgrad_device_ms",
                                  "fwd_bound_ms", "dgrad_bound_ms")}
     n = TRAIN_BATCH
     for name, r, cin, co in train_shapes:
@@ -530,13 +610,20 @@ def main():
              "wgrad_ms": time_ms(lambda: conv_kernel.conv3x3_wgrad(xb, gb), 5),
              "library_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
                  F.conv2d(xn, wn, padding=1), (xn, wn), gn), 10),
+             "fwd_device_ms": graph_ms(lambda: conv_kernel.conv3x3_act_chw(
+                 xb, wb, zb_o, 1.0, None, "float32"), 10),
+             "dgrad_device_ms": graph_ms(lambda: conv_kernel.conv3x3_act_chw(gb, wt, zb_i, 1.0), 10),
              "fwd_bound_ms": bound_ms(fb, 2 * fmacs, BF16_FLOPS)[0],
              "dgrad_bound_ms": bound_ms(db, 2 * dmacs, BF16_FLOPS)[0]}
         for k, v in t.items():
             # per step: 7 frames; the input layer's dgrad is never asked for
             if not (name == "enc1.conv1" and k.startswith("dgrad")):
                 grad_sum[k] += TRAIN_SEQ * v
-        grad_rows.append({"layer": name, "shape": [n, r, r, cin, co], **t})
+        grad_rows.append({"layer": name, "shape": [n, r, r, cin, co], **t,
+                          "fwd_pct_of_bound": 100 * t["fwd_bound_ms"] / t["fwd_device_ms"],
+                          "dgrad_pct_of_bound": 100 * t["dgrad_bound_ms"] / t["dgrad_device_ms"],
+                          "fwd_blocks": conv_kernel.conv_plan(n, r, r, co).blocks,
+                          "dgrad_blocks": conv_kernel.conv_plan(n, r, r, cin).blocks})
     torch.cuda.synchronize()
     emit({"phase": "conv_grad_check", "shapes": len(train_shapes), "batch": n,
           "max_abs_err": grad_err,
@@ -548,8 +635,12 @@ def main():
           "launches_checked": "forward + dgrad = 2 per call, 1 when x needs no gradient"})
     emit({"phase": "conv_grad_timing", "card": smi, "per_shape": grad_rows,
           "per_step_ms": grad_sum,
+          "per_step_pct_of_bound": {
+              "fwd": 100 * grad_sum["fwd_bound_ms"] / grad_sum["fwd_device_ms"],
+              "dgrad": 100 * grad_sum["dgrad_bound_ms"] / grad_sum["dgrad_device_ms"]},
           "per_step": "7 frames x 28 convs, less the input layer's 7 dgrads; batch 4, "
-                      "bfloat16 in, forward float32 out",
+                      "bfloat16 in, forward float32 out; *_ms: CUDA events around calls "
+                      "back to back, *_device_ms: CUDA graph replay (device time only)",
           "library_call": "F.conv2d(bf16, channels_last) forward + autograd backward "
                           "(dx and dw)"})
 
@@ -740,6 +831,8 @@ def main():
     k2_train = {"train_launches_per_step": k2_per_step,
                 "train_forward_ms_per_step": in_step["k2_forward"][1],
                 "train_dgrad_ms_per_step": in_step["k2_dgrad"][1],
+                "train_alone_device_ms_per_step": grad_sum["fwd_device_ms"]
+                + grad_sum["dgrad_device_ms"],
                 "train_bound_ms_per_step": grad_sum["fwd_bound_ms"] + grad_sum["dgrad_bound_ms"],
                 "train_library_fwd_bwd_ms_per_step": grad_sum["library_fwd_bwd_ms"]}
     emit({"phase": "train_timing", "card": smi, "batch": TRAIN_BATCH, "crop": TRAIN_CROP,
@@ -1317,14 +1410,15 @@ def main():
          "source": "ai_path_tracer_denoiser_tpu_torch/csrc/conv3x3_act.cu",
          "replaces": "ai_path_tracer_denoiser_tpu/models/conv_kernel.py:287",
          "launches": launches["conv3x3_act"], "max_abs_err": k2_err,
-         "ms": conv_sum["ms"], "plain_ms": conv_sum["plain_ms"],
+         "ms": conv_sum["ms"], "call_ms": conv_sum["call_ms"], "plain_ms": conv_sum["plain_ms"],
          "bound_ms": conv_sum["bound_ms"], "bound_by": conv_bound_by,
          "library_ms": conv_sum["library_ms"], **k2_train},
         {"name": "conv3x3_rows", "route": "cuda",
          "source": "ai_path_tracer_denoiser_tpu_torch/csrc/conv3x3_rows.cu",
          "replaces": "ai_path_tracer_denoiser_tpu/models/conv_kernel.py:120",
          "launches": rows_launches, "max_abs_err": k3_err,
-         "ms": conv_sum["rows_ms"], "plain_ms": conv_sum["rows_plain_ms"],
+         "ms": conv_sum["rows_ms"], "call_ms": conv_sum["rows_call_ms"],
+         "plain_ms": conv_sum["rows_plain_ms"],
          "bound_ms": conv_sum["bound_ms"], "bound_by": conv_bound_by,
          "library_ms": conv_sum["library_ms"]},
     ] + [

@@ -298,8 +298,9 @@ def test_wavefront_option_flags_reach_render_options():
     assert opts.motion_blur and not opts.sort_material
     with pytest.raises(ValueError, match="incompatible with antialiasing"):
         _render_options(parser.parse_args(["render", "s.txt", "--cache-first-bounce"]))
-    with pytest.raises(ValueError, match="multiple of 128"):
-        _render_options(parser.parse_args(["render", "s.txt", "--mesh-kernel-lanes", "100"]))
+    # any lane count is taken, as by the JAX CLI; "v2" checks it when it runs
+    opts = _render_options(parser.parse_args(["render", "s.txt", "--mesh-kernel-lanes", "100"]))
+    assert opts.mesh_kernel_lanes == 100
     bench = parser.parse_args(["bench", "a.txt", "b.txt"])
     assert bench.scenes == ["a.txt", "b.txt"] and bench.iters == 500 and bench.device == "cuda"
 

@@ -242,12 +242,22 @@ def test_megakernel_matches_plain_on_card(cuda_device, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,w,c,co,affine", [(25, 25, 202, 101, False),
-                                             (50, 50, 76, 101, True),
-                                             (64, 48, 10, 32, False),
-                                             (32, 32, 64, 3, False)])
-def test_conv_kernel_matches_plain_on_card(cuda_device, h, w, c, co, affine):
+@pytest.mark.parametrize("n,h,w,c,co,affine", [(0, 25, 25, 202, 101, False),
+                                               (0, 50, 50, 76, 101, True),
+                                               (0, 64, 48, 10, 32, False),
+                                               (0, 32, 32, 64, 3, False),
+                                               (0, 37, 53, 43, 57, True),
+                                               (0, 25, 25, 101, 202, False),
+                                               (0, 800, 64, 64, 3, True),
+                                               (4, 50, 50, 101, 202, True),
+                                               (4, 16, 16, 3, 3, False)])
+def test_conv_kernel_matches_plain_on_card(cuda_device, n, h, w, c, co, affine):
+    """bfloat16 input through the tile kernel: unbatched and a batch of 4;
+    odd and aligned channel counts, a width that is no multiple of the
+    pixel tile, Co = 202 (the input gradient's widest) and Co = Cin = 3."""
     x, wt, b, aff = _conv_inputs(h, w, c, co, seed=c)
+    if n:
+        x = torch.stack([x.roll(i, 0) for i in range(n)])
     xs = x.to(cuda_device, torch.bfloat16)
     ws = wt.to(cuda_device, torch.bfloat16)
     bs = b.to(cuda_device)
@@ -258,9 +268,17 @@ def test_conv_kernel_matches_plain_on_card(cuda_device, h, w, c, co, affine):
         want = conv_kernel.conv3x3_act_plain(xs, ws, bs, 0.1, affs, out_dtype)
         torch.cuda.synchronize()
         assert conv_kernel.KERNEL.launches == launches + 1
-        assert got.dtype == want.dtype and got.shape == (h, w, co)
+        assert got.dtype == want.dtype and got.shape == (*x.shape[:-1], co)
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(), rtol=rtol, atol=atol)
+    # the card packs the weights as pack_weights_sm90 lays them out
+    n_cols = conv_kernel.conv_plan(max(n, 1), h, w, co).n_cols
+    assert torch.equal(conv_kernel._packed_weights(ws.clone(), torch.bfloat16, ws.device, n_cols),
+                       conv_kernel.pack_weights_sm90(ws, n_cols))
+    # an input that does not start on a 16-byte boundary gives the same result
+    xo = torch.empty(xs.numel() + 1, dtype=xs.dtype, device=cuda_device)[1:].view_as(xs)
+    xo.copy_(xs)
+    assert torch.equal(conv_kernel.conv3x3_act_chw(xo, ws, bs, 0.1, affs), got)
     with pytest.raises(ValueError):
         conv_kernel.conv3x3_act_chw(xs.half(), ws, bs, 0.1)
 

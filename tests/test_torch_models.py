@@ -187,3 +187,55 @@ def test_whole_network_agrees_between_conv_impls_and_sequence_helper():
         y, hidden = apply_frame_fast(folded, torch.from_numpy(x), hidden, mopts,
                                      compute_dtype=torch.float32, conv_impl="pallas2")
         assert torch.equal(y, ys["pallas2"][t])
+
+
+# The bfloat16 tile kernel reads its weights in the packed layout of
+# ``pack_weights_sm90``: the conv computed from that layout
+# (``conv3x3_act_packed_plain``) is held against the JAX Pallas kernel in
+# interpret mode, float32, at the tolerance of the plain conv above; every
+# padding case of input (to 16) and output channels (to 8) is covered.
+@pytest.mark.parametrize("co", [3, 32, 101])
+@pytest.mark.parametrize("c", [3, 10, 43, 202])
+def test_packed_weights_conv_matches_pallas_kernel(c, co):
+    h, w = 8, 6
+    x, wt, b, aff = _conv_inputs(h, w, c, co, seed=3 * c + co)
+    want = np.asarray(jax_conv.conv3x3_act_chw(
+        jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b), 0.1,
+        affine={k: jnp.asarray(v) for k, v in aff.items()}, interpret=True))
+    tw = torch.from_numpy(wt)
+    plan = conv_kernel.conv_plan(1, h, w, co)
+    wp = conv_kernel.pack_weights_sm90(tw, plan.n_cols)
+    assert wp.shape == (-(-c // 16), 9, plan.n_cols // 8, 2, 8, 8)
+    assert torch.equal(conv_kernel.unpack_weights_sm90(wp, c, co), tw)
+    # zero past C and past Co
+    full = conv_kernel.unpack_weights_sm90(wp, 16 * wp.shape[0], plan.n_cols)
+    assert not full[:, :, c:].any() and not full[:, :, :, co:].any()
+    got = conv_kernel.conv3x3_act_packed_plain(
+        torch.from_numpy(x), wp, torch.from_numpy(b), 0.1,
+        affine={k: torch.from_numpy(v) for k, v in aff.items()})
+    assert got.dtype == torch.float32 and got.shape == (h, w, co)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
+FRAME_CONVS = [(800, 10, 32), (800, 64, 32), (800, 32, 32), (400, 32, 43), (400, 86, 43),
+               (400, 43, 43), (200, 43, 57), (200, 114, 57), (200, 57, 57), (100, 57, 76),
+               (100, 152, 76), (100, 76, 76), (50, 76, 101), (50, 202, 101), (50, 101, 101),
+               (25, 101, 101), (25, 202, 101), (50, 202, 76), (50, 76, 76), (100, 152, 57),
+               (100, 57, 57), (200, 114, 43), (200, 43, 43), (400, 86, 32), (400, 32, 32),
+               (800, 64, 3), (800, 3, 3)]
+
+
+@pytest.mark.parametrize("r,c,co", FRAME_CONVS)
+def test_conv_plan_fills_the_card_and_reads_the_input_once(r, c, co):
+    """Each of an 800x800 frame's conv shapes (forward, and its input
+    gradient c <-> co) launches at least one block per SM; a block covers
+    every output channel (N = Co rounded up to 8) unless the image is too
+    small to fill the card with pixel tiles alone."""
+    for cout in (co, c):
+        plan = conv_kernel.conv_plan(1, r, r, cout)
+        assert plan.blocks >= conv_kernel.SMS
+        assert plan.tw * plan.th == 64 * plan.nwg
+        assert plan.n_cols >= cout and plan.nb in conv_kernel.BLOCK_GROUPS
+        tiles = plan.blocks // plan.groups
+        if tiles >= conv_kernel.SMS:
+            assert plan.groups == 1 and plan.n_cols == -(-cout // 8) * 8

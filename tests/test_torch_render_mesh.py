@@ -59,6 +59,7 @@ def torus_dense_scan():
     dict(mesh_kernel_impl="v2p", mesh_octant_sort=False),
     dict(mesh_kernel_impl="v2s", mesh_sort_cells=-8),
     dict(mesh_kernel_impl="v2p", mesh_sort_cells=0, mesh_kernel_lanes=128),
+    dict(mesh_kernel_impl="v2p", mesh_kernel_lanes=2048),
     dict(mesh_kernel_impl="binned"),
     dict(),
 ], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()) or "auto")
@@ -71,6 +72,16 @@ def test_mesh_paths_render_the_same_image(torus_dense_scan, kwargs):
     assert state.iteration == 2
     if kwargs.get("mesh_kernel_impl") == "binned":
         assert mesh_binned.PATHS["fast"] > fast
+
+
+@pytest.mark.parametrize("lanes", [2048, 100])
+def test_mesh_kernel_lanes_is_checked_on_the_v2_path_only(lanes):
+    """Any ``mesh_kernel_lanes`` constructs (the JAX options take any value);
+    "v2", whose CUDA block it is, refuses one that is no block size when it
+    runs, naming the limit."""
+    opts = RenderOptions(mesh_kernel_impl="v2", mesh_kernel_lanes=lanes)
+    with pytest.raises(ValueError, match="a multiple of 128, at most 1024"):
+        render(_torus(depth=2, res=16), opts, num_iterations=1)
 
 
 def test_sorted_tile_draws_the_frame_s_noise():
