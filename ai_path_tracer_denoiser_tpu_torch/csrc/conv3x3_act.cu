@@ -88,20 +88,11 @@ namespace {
 // ---------------------------------------------------------------------------
 
 constexpr int kStages = 3;       // ring of halo + weight stages
-constexpr int kPixBytes = 48;    // a halo pixel's slot: 16 channels + 8 of slack
 constexpr int kMaxThreads = 256; // two warpgroups
 constexpr int kMaxNB = 26;       // 8-channel groups per block (Co 208)
 // Halo pieces (3 per pixel) per thread: at most 3 * 136 over 128 threads
 // (a 32x2 tile) and 3 * 204 over 256 (32x4).
 constexpr int kItems = 4;
-
-// Pixel index (gy * W + gx) within its image of halo pixel hp, or -1
-// outside the image.
-__device__ __forceinline__ int halo_pixel(int hp, int hw2, int x0, int y0, int H, int W) {
-  const int hy = hp / hw2;
-  const int gy = y0 + hy - 1, gx = x0 + (hp - hy * hw2) - 1;
-  return (gy < 0 || gy >= H || gx < 0 || gx >= W) ? -1 : gy * W + gx;
-}
 
 // Blocks per SM the register budget is set for: an 8-channel group of
 // accumulators is 4 registers, the 9 taps' A fragments 36.
@@ -150,33 +141,14 @@ conv3x3_bf16_sm90(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     for (int t = 0; t < kItems; ++t) {
       const int i = tid + t * nthreads;
       if (i >= 3 * halo_pix) break;
-      const int j = i % 3;
-      const long long p = (img0 + pix[t]) * Cin;
-      if (direct) {             // aligned: two pieces in place, zero-filled
-        if (j == 2) continue;
-        const int bytes = (pix[t] >= 0 && 8 * j < nvalid) ? 16 : 0;
-        cp_async16(raw_s + i * 16, bytes ? x + p + c0 + 8 * j : x, bytes);
-      } else {                  // the pieces covering [e, e + nvalid), re-laid below
-        if (pix[t] < 0) continue;
-        const long long e = p + c0;
-        const long long a = (e & ~7LL) + 8 * j;
-        if (a >= e + nvalid) continue;
-        const long long left = total - a;
-        cp_async16(raw_s + i * 16, x + a, left >= 8 ? 16 : (int)left * 2);
-      }
+      copy_piece(raw_s + i * 16, x, (img0 + pix[t]) * Cin + c0, i % 3, nvalid, total,
+                 pix[t] >= 0, direct);
     }
-    const uint32_t w_s = raw_s + raw_bytes;
-    const __nv_bfloat16* wk = wp + ((size_t)k * 9 * nb_total + grp * NB) * 128;
-    for (int i = tid; i < 9 * NB * 16; i += nthreads) {
-      const int tap = i / (NB * 16), r = i - tap * (NB * 16);
-      cp_async16(w_s + i * 16, wk + (size_t)tap * nb_total * 128 + r * 8, 16);
-    }
+    copy_weights<NB>(raw_s + raw_bytes, wp + ((size_t)k * 9 * nb_total + grp * NB) * 128,
+                     nb_total, tid, nthreads);
   };
 
-  // Re-lay chunk k's halo from stage s at the 48-byte pixel stride (odd Cin):
-  // eight channels from 32-bit words, shifted by half a word where the
-  // pixel's channels start on an odd element; zero outside the image and
-  // past Cin.
+  // Re-lay chunk k's halo from stage s at the 48-byte pixel stride (odd Cin).
   auto relay = [&](int k, int s) {
     const uint32_t* raw = reinterpret_cast<const uint32_t*>(smem + s * stage_bytes);
     const int nvalid = min(16, Cin - k * 16);
@@ -185,22 +157,8 @@ conv3x3_bf16_sm90(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       const int i = tid + t * nthreads;
       if (i >= 2 * halo_pix) break;
       const int hp = i >> 1, h = i & 1;
-      uint32_t v[4] = {0u, 0u, 0u, 0u};
-      if (rpix[t] >= 0) {
-        const int e0 = (int)(((img0 + rpix[t]) * Cin) & 7) + 8 * h;
-        const uint32_t* src = raw + hp * (kPixBytes / 4) + (e0 >> 1);
-        uint32_t wd[5];
-#pragma unroll
-        for (int q = 0; q < 5; ++q) wd[q] = src[q];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          v[q] = (e0 & 1) ? __funnelshift_r(wd[q], wd[q + 1], 16) : wd[q];
-          const int c = 8 * h + 2 * q;
-          if (c >= nvalid) v[q] = 0u;
-          else if (c + 1 >= nvalid) v[q] &= 0xFFFFu;
-        }
-      }
-      *reinterpret_cast<uint4*>(abuf + hp * kPixBytes + h * 16) = make_uint4(v[0], v[1], v[2], v[3]);
+      relay_half(abuf + hp * kPixBytes + h * 16, raw + hp * (kPixBytes / 4),
+                 (int)(((img0 + rpix[t]) * Cin) & 7), h, nvalid, rpix[t] >= 0);
     }
   };
 
@@ -240,13 +198,7 @@ conv3x3_bf16_sm90(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     const uint32_t w_s = smem_addr(smem + s * stage_bytes + raw_bytes);
     wgmma_fence();
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const uint32_t wt = w_s + tap * NB * 256;
-#pragma unroll
-      for (int g = 0; g + 4 <= NB; g += 4) wgmma_bf16<4>(acc + 4 * g, a[tap], b_desc(wt + g * 256));
-      if constexpr (NB % 4 != 0)
-        wgmma_bf16<NB % 4>(acc + 4 * (NB - NB % 4), a[tap], b_desc(wt + (NB - NB % 4) * 256));
-    }
+    for (int tap = 0; tap < 9; ++tap) wgmma_tap<NB>(acc, a[tap], w_s + tap * NB * 256);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(acc);
@@ -265,52 +217,7 @@ conv3x3_bf16_sm90(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     live[half] = py < H && px < W;
     row[half] = ((size_t)(img * H + py) * W + px) * Co;
   }
-  const bool pairs = !(Co & 1);     // channel pairs stay aligned for one store
-#pragma unroll
-  for (int j = 0; j < NB; ++j) {
-    const int c = co0 + 8 * j;
-    if (c >= Co) continue;
-    const bool two = c + 1 < Co;
-    float bq[2], sq[2] = {1.0f, 1.0f}, tq[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int o = two ? c + q : c;
-      bq[q] = bias[o];
-      if (has_affine) {
-        sq[q] = aff_s[o];
-        tq[q] = aff_t[o];
-      }
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if (!live[half]) continue;
-      float v[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        float y = acc[4 * j + 2 * half + q] + bq[q];
-        y = y >= 0.0f ? y : y * slope;
-        v[q] = has_affine ? y * sq[q] + tq[q] : y;
-      }
-      const size_t idx = row[half] + c;
-      if (out_f32) {
-        float* o = static_cast<float*>(out) + idx;
-        if (two && pairs) {
-          *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
-        } else {
-          o[0] = v[0];
-          if (two) o[1] = v[1];
-        }
-      } else {
-        __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out) + idx;
-        if (two && pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v[0], v[1]);
-        } else {
-          o[0] = __float2bfloat16_rn(v[0]);
-          if (two) o[1] = __float2bfloat16_rn(v[1]);
-        }
-      }
-    }
-  }
+  store_acc<NB>(acc, co0, Co, row, live, bias, aff_s, aff_t, slope, has_affine, out, out_f32);
 }
 
 template <int NB>
@@ -320,7 +227,7 @@ int launch_bf16(const void* x, const void* wp, const float* bias, const float* a
                 cudaStream_t st) {
   const int TH = 64 * nwg / TW;
   const int direct = Cin % 8 == 0;
-  const size_t raw = (size_t)(TH + 2) * (TW + 2) * kPixBytes;
+  const size_t raw = (size_t)(TH + 2) * (TW + 2) * conv_sm90::kPixBytes;
   const size_t bytes = kStages * (raw + 9 * NB * 256) + (direct ? 0 : raw);
   auto kernel = conv3x3_bf16_sm90<NB>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

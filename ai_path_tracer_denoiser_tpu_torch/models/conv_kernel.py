@@ -14,9 +14,13 @@ arguments and the activation channels-last:
   Training uses it for the conv's forward pass and input gradient
   (models/layers.py).
 * ``conv3x3_act`` (impl "pallas"): the row-band kernel
-  csrc/conv3x3_rows.cu, which stages a band of rows once for all taps and
-  all output channels and takes the weights packed by ``pack_weights``;
-  optionally the input arrives zero-bordered (``conv_input_pad``).
+  csrc/conv3x3_rows.cu: for bfloat16 input a Hopper kernel built from the
+  tile kernel's pieces in which a block covers a band of output rows by a
+  64-pixel segment and every output channel, a warpgroup's 64 pixels being
+  a run of one output row, with the weights packed by ``pack_weights_sm90``
+  and the launch planned by ``rows_plan``; for float32 input the 3xTF32
+  kernel that takes the weights packed by ``pack_weights``.  Optionally the
+  input arrives zero-bordered (``conv_input_pad``).
 
 On CPU tensors each wrapper runs its plain PyTorch version
 (``conv3x3_act_plain``: nine shifted float32 matrix products;
@@ -39,7 +43,7 @@ import torch.nn.functional as F
 
 from ..utils.cuda_build import CudaKernel, check
 
-TH = 8                   # output rows per band of the row-band kernel
+TH = 8                   # output rows per band of the JAX row-band kernel
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -55,13 +59,13 @@ def _declare_rows(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.aptd_conv3x3_rows.restype = i
     lib.aptd_conv3x3_rows.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i,
-                                      ctypes.c_float, i, i, p]
+                                      ctypes.c_float, i, i, i, i, i, p]
 
 
 KERNEL = CudaKernel("conv3x3_act", "conv3x3_act.cu", declare=_declare,
                     headers=("conv_mma.cuh", "conv_sm90.cuh"))
 ROWS_KERNEL = CudaKernel("conv3x3_rows", "conv3x3_rows.cu",
-                         declare=_declare_rows, headers=("conv_mma.cuh",))
+                         declare=_declare_rows, headers=("conv_mma.cuh", "conv_sm90.cuh"))
 
 
 def _out_dtype(x: torch.Tensor, out_dtype) -> torch.dtype:
@@ -185,32 +189,40 @@ def pack_weights_sm90(w: torch.Tensor, n_cols: Optional[int] = None) -> torch.Te
 # Packed weights of recent calls: the denoiser's 28 layers call with the
 # same weight tensors every frame.  An entry is found by the tensor's
 # identity and version counter (an in-place update misses) and holds the
-# tensor, so its storage cannot pass to another tensor while cached.  On a
-# miss the card packs them in one launch of the packing kernel beside the
-# conv kernel (csrc/conv3x3_act.cu:pack_weights_sm90, the layout of
-# ``pack_weights_sm90``).
+# tensor, so its storage cannot pass to another tensor while cached.
 _PACKED: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = OrderedDict()
 _PACKED_ENTRIES = 64
 
 
-def _packed_weights(w: torch.Tensor, dtype: torch.dtype, dev: torch.device,
-                    n_cols: int) -> torch.Tensor:
-    key = (id(w), w._version, dtype, dev, n_cols)
+def _cached_packing(w: torch.Tensor, key: tuple, pack) -> torch.Tensor:
+    key = (id(w), w._version) + key
     hit = _PACKED.get(key)
     if hit is not None and hit[0] is w:
         _PACKED.move_to_end(key)
         return hit[1]
-    wd = w.detach().to(device=dev, dtype=dtype).contiguous()
-    c, co = wd.shape[2:]
-    wp = torch.empty((_cdiv(c, 16), 9, n_cols // 8, 2, 8, 8), dtype=dtype, device=dev)
-    with torch.cuda.device(dev):
-        rc = KERNEL.lib().aptd_conv3x3_pack_weights(
-            wd.data_ptr(), wp.data_ptr(), c, co, n_cols, torch.cuda.current_stream().cuda_stream)
-    check(rc, "conv3x3_act weight packing")
+    wp = pack()
     _PACKED[key] = (w, wp)
     if len(_PACKED) > _PACKED_ENTRIES:
         _PACKED.popitem(last=False)
     return wp
+
+
+def _packed_weights(w: torch.Tensor, dtype: torch.dtype, dev: torch.device,
+                    n_cols: int) -> torch.Tensor:
+    """``pack_weights_sm90(w, n_cols)`` on the card, cached.  On a miss the
+    card packs them in one launch of the packing kernel beside the tile
+    conv kernel (csrc/conv3x3_act.cu:pack_weights_sm90)."""
+    def pack():
+        wd = w.detach().to(device=dev, dtype=dtype).contiguous()
+        c, co = wd.shape[2:]
+        wp = torch.empty((_cdiv(c, 16), 9, n_cols // 8, 2, 8, 8), dtype=dtype, device=dev)
+        with torch.cuda.device(dev):
+            rc = KERNEL.lib().aptd_conv3x3_pack_weights(
+                wd.data_ptr(), wp.data_ptr(), c, co, n_cols,
+                torch.cuda.current_stream().cuda_stream)
+        check(rc, "conv3x3_act weight packing")
+        return wp
+    return _cached_packing(w, (dtype, dev, n_cols), pack)
 
 
 def unpack_weights_sm90(wp: torch.Tensor, c: int, co: int) -> torch.Tensor:
@@ -341,6 +353,63 @@ def conv_input_pad(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, 0, 1, wp - w2 + 1, 1, 1))
 
 
+# The bfloat16 row-band kernel's geometry (csrc/conv3x3_rows.cu)
+ROWS_SEG = 64            # pixels of a band's segment: one warpgroup's M
+RING_MAX = 3             # stages of its halo + weight ring
+PIX_BYTES = 48           # a halo pixel's slot in shared memory
+ROWS_FILL = 88           # blocks a launch should have: 2/3 of SMS
+
+
+class RowsPlan(NamedTuple):
+    """How the bfloat16 row-band kernel covers one call: blocks of two
+    warpgroups, each on ``mt`` output rows of a 64-pixel segment (a band of
+    ``th`` rows), ``nb`` groups of 8 output channels per block, ``groups``
+    blocks over the channels of a band; ``smem`` bytes of dynamic shared
+    memory per block."""
+    mt: int
+    nb: int
+    groups: int
+    blocks: int
+    smem: int
+
+    @property
+    def th(self) -> int:
+        return 2 * self.mt
+
+    @property
+    def n_cols(self) -> int:
+        """Output channels of the packed weights: groups * nb * 8 >= Co."""
+        return self.groups * self.nb * 8
+
+
+@functools.lru_cache(maxsize=256)
+def rows_plan(n: int, h: int, w: int, c: int, co: int) -> RowsPlan:
+    """The launch of the bfloat16 row-band kernel for an (n, h, w, c) -> co
+    call.
+
+    A warpgroup takes two rows (a 4-row band, whose halo is read for 256
+    outputs) where a block covers at most 32 output channels and the 4-row
+    bands alone launch at least ``SMS`` blocks; otherwise one row.  A block
+    covers all ceil(co/8) groups of 8 output channels unless that leaves
+    fewer than ``ROWS_FILL`` blocks: then the channels are dealt out to the
+    fewest blocks per band that reach it (or to one group per block).  Both
+    rules and the threshold come from a sweep of launch plans over the
+    frame's shapes on an H100 (csrc/conv3x3_rows.cu).
+    """
+    need = _cdiv(co, 8)
+    segs = n * _cdiv(w, ROWS_SEG)
+    mt = 2 if need <= 4 and segs * _cdiv(h, 4) >= SMS else 1
+    bands = segs * _cdiv(h, 2 * mt)
+    for groups in range(_cdiv(need, BLOCK_GROUPS[-1]), need + 1):
+        nb = next(g for g in BLOCK_GROUPS if g >= _cdiv(need, groups))
+        groups = _cdiv(need, nb)
+        if bands * groups >= ROWS_FILL:
+            break
+    halo = (2 * mt + 2) * (ROWS_SEG + 2) * PIX_BYTES
+    smem = min(_cdiv(c, 16), RING_MAX) * (halo + 9 * nb * 256) + (0 if c % 8 == 0 else halo)
+    return RowsPlan(mt, nb, groups, bands * groups, smem)
+
+
 def supported_height(h: int) -> bool:
     """Whether the JAX kernel takes this height (whole bands of TH rows).
     The CUDA kernel masks a ragged last band and takes any height."""
@@ -404,16 +473,25 @@ def conv3x3_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"weights {tuple(w.shape)} do not match {c} channels")
     co = w.shape[-1]
     dev = x.device
-    wall = pack_weights(w.to(device=dev, dtype=x.dtype)).contiguous()
+    f32_in = x.dtype == torch.float32
+    if f32_in:
+        plan = None
+        wk = _cached_packing(w, ("rows", dev), lambda: pack_weights(
+            w.detach().to(device=dev, dtype=x.dtype)).contiguous())
+    else:
+        plan = rows_plan(n, h, w_pix, c, co)
+        wk = _packed_weights(w, x.dtype, dev, plan.n_cols)
+        if x.data_ptr() % 16:            # the kernel's copies start on 16-byte boundaries
+            x = x.clone()
     bias, s, t = _epilogue_vectors(b, affine, co, dev)
     out = torch.empty((*x.shape[:-3], h, w_pix, co), dtype=x.dtype, device=dev)
     lib = ROWS_KERNEL.lib()
     with torch.cuda.device(dev):
         rc = lib.aptd_conv3x3_rows(
-            x.data_ptr(), wall.data_ptr(), bias.data_ptr(), s.data_ptr(),
+            x.data_ptr(), wk.data_ptr(), bias.data_ptr(), s.data_ptr(),
             t.data_ptr(), out.data_ptr(), n, ha, wa, h, w_pix, c, co,
-            int(pre_padded), float(slope), int(affine is not None),
-            int(x.dtype == torch.float32),
+            int(pre_padded), float(slope), int(affine is not None), int(f32_in),
+            *((0, 0, 0) if plan is None else (plan.mt, plan.nb, plan.groups * plan.nb)),
             torch.cuda.current_stream().cuda_stream)
     check(rc, f"conv3x3_rows kernel ({c} input channels)")
     ROWS_KERNEL.launches += 1

@@ -30,9 +30,9 @@ and an unsorted frame; and the visit-cost probe
 (`tools/mm_feasibility.py`: the scalar and the tensor-core visit kernel
 against their plain versions, then microseconds per visit).  The conv
 kernels are checked on the frame's 28 shapes (bfloat16, float32 and batched
-input; the row-band kernel also on a zero-bordered input), the tile kernel
-also at shapes the frame never reaches (Co = 202, 3 -> 3, ragged widths, a
-batch of 4), and the conv's autograd on the train step's 28 shapes against
+input; the row-band kernel also on a zero-bordered input, odd and aligned
+Cin), both also at shapes the frame never reaches (Co = 202, 3 -> 3, ragged
+widths, a batch of 4), and the conv's autograd on the train step's 28 shapes against
 the plain backward pass and `F.conv2d`'s; the conv kernels are timed by
 CUDA graph replay (device time) beside the events-around-calls time.  It
 checks that every path went through its kernels with the launch counts it
@@ -339,16 +339,17 @@ def main():
                     f"conv check {key} at {name}: max abs err {err}")
         conv_rows.append({"layer": name, "shape": [r, wd, cin, co],
                           "affine": aff is not None, "x": x, "conv": conv, "aff": aff})
-    # the tile kernel at shapes the frame's forward convs never reach, in
-    # bfloat16 and float32 out: Co = 202 (the input gradient of enc5.conv2 and
+    # both conv kernels at shapes the frame's forward convs never reach (the
+    # tile kernel in bfloat16 and float32 out, the row-band kernel in
+    # bfloat16): Co = 202 (the input gradient of enc5.conv2 and
     # bottleneck.conv2), Co = Cin = 3, widths that are no multiple of the
-    # pixel tile, a batch of 4
+    # pixel tile or the 64-pixel segment, a batch of 4
     stress = [("enc5.conv2 dgrad", 0, 50, 50, 101, 202),
               ("bottleneck.conv2 dgrad", 0, 25, 25, 101, 202),
               ("3 -> 3", 0, 64, 64, 3, 3), ("ragged 37x53", 0, 37, 53, 43, 57),
               ("ragged 800x64", 0, 800, 64, 64, 3), ("batch of 4", 4, 100, 100, 57, 76),
               ("batch of 4, dgrad", 4, 25, 25, 101, 202)]
-    errs.update({"k2_stress_bf16": 0.0, "k2_stress_f32out": 0.0})
+    errs.update({"k2_stress_bf16": 0.0, "k2_stress_f32out": 0.0, "k3_stress_bf16": 0.0})
     for name, n_img, r, wd, cin, co in stress:
         x = torch.randn(((n_img,) if n_img else ()) + (r, wd, cin), generator=gen,
                         device=dev).to(torch.bfloat16)
@@ -364,29 +365,42 @@ def main():
             errs[key] = max(errs[key], err)
             require(got.shape == want.shape and got.dtype == want.dtype and ok,
                     f"conv check {key} at {name}: max abs err {err}")
+        got = conv_kernel.conv3x3_act(x, w, b, 0.1, aff)
+        want = conv_kernel.conv3x3_act_rows_plain(x, w, b, 0.1, aff)
+        ok, err = within(got, want, False)
+        errs["k3_stress_bf16"] = max(errs["k3_stress_bf16"], err)
+        require(got.shape == want.shape and got.dtype == want.dtype and ok,
+                f"conv check k3_stress_bf16 at {name}: max abs err {err}")
         # the card's weight packing (a fresh tensor misses the cache) against
-        # the plain packing, element for element
-        n_cols = conv_kernel.conv_plan(max(n_img, 1), r, wd, co).n_cols
-        require(torch.equal(conv_kernel._packed_weights(w.clone(), torch.bfloat16, dev, n_cols),
-                            conv_kernel.pack_weights_sm90(w, n_cols)),
-                f"weight packing on the card differs from pack_weights_sm90 at {name}")
-    # the row-band kernel on a zero-bordered input (enc1.conv2: 64 -> 32, affine)
-    name, r, conv, aff = shapes[1]
-    x = conv_rows[1]["x"]
-    got = conv_kernel.conv3x3_act(conv_kernel.conv_input_pad(x).contiguous(), conv["w"],
-                                  conv["b"], 0.1, aff, pre_padded=True, width=x.shape[1])
-    ok, errs["k3_pre_padded"] = within(
-        got, conv_kernel.conv3x3_act_rows_plain(x, conv["w"], conv["b"], 0.1, aff), False)
-    require(ok, f"row-band kernel on a pre-padded input at {name}")
+        # the plain packing, element for element, at both kernels' widths
+        for n_cols in (conv_kernel.conv_plan(max(n_img, 1), r, wd, co).n_cols,
+                       conv_kernel.rows_plan(max(n_img, 1), r, wd, cin, co).n_cols):
+            require(torch.equal(conv_kernel._packed_weights(w.clone(), torch.bfloat16, dev,
+                                                            n_cols),
+                                conv_kernel.pack_weights_sm90(w, n_cols)),
+                    f"weight packing on the card differs from pack_weights_sm90 at {name}")
+    # the row-band kernel on a zero-bordered input: enc1.conv2 (64 -> 32,
+    # affine; Cin a multiple of 8) and enc2.conv2 (86 -> 43, odd Cin)
+    errs["k3_pre_padded"] = 0.0
+    for i in (1, 4):
+        name, r, conv, aff = shapes[i]
+        x = conv_rows[i]["x"]
+        got = conv_kernel.conv3x3_act(conv_kernel.conv_input_pad(x).contiguous(), conv["w"],
+                                      conv["b"], 0.1, aff, pre_padded=True, width=x.shape[1])
+        ok, err = within(
+            got, conv_kernel.conv3x3_act_rows_plain(x, conv["w"], conv["b"], 0.1, aff), False)
+        errs["k3_pre_padded"] = max(errs["k3_pre_padded"], err)
+        require(ok, f"row-band kernel on a pre-padded input at {name}")
     torch.cuda.synchronize()
     k2_err, k3_err = errs["k2_bf16"], errs["k3_bf16"]
     emit({"phase": "conv_check", "shapes": len(shapes), "max_abs_err": errs,
           "checks": "tile kernel (K2): bf16 in/out, bf16 in f32 out, f32 in/out, batch "
                     "of 2 at the 28 frame shapes; bf16 in, bf16 and f32 out at "
-                    f"{[st[0] for st in stress]}, and its weight packing on the card bit for "
-                    "bit against pack_weights_sm90 there; row-band kernel (K3): bf16, f32 in/out, "
-                    "each against its own plain version, K3 also against K2's plain "
-                    "version and once on a pre-padded input",
+                    f"{[st[0] for st in stress]}, and the weight packing on the card bit for "
+                    "bit against pack_weights_sm90 there at both kernels' widths; row-band "
+                    "kernel (K3): bf16, f32 in/out at the 28 frame shapes, each against its own "
+                    "plain version, K3 also against K2's plain version, bf16 at the same "
+                    "stress shapes, and on a pre-padded input (enc1.conv2, enc2.conv2)",
           "tolerance": "bf16 out |k-p| <= 1e-2 + 1.6e-2|p| (one bf16 rounding "
                        "step); f32 out |k-p| <= 1e-3 + 1e-3|p| (summation order)"})
 
@@ -460,13 +474,17 @@ def main():
         for k, v in t.items():
             conv_sum[k] += v
         plan = conv_kernel.conv_plan(1, r, wd, co)
+        rplan = conv_kernel.rows_plan(1, r, wd, cin, co)
         per_shape.append({"layer": row["layer"], "shape": row["shape"],
                           "affine": row["affine"],
                           **{k: v for k, v in t.items() if k.endswith("_ms") or k == "ms"},
                           "pct_of_bound": 100 * t["bound_ms"] / t["ms"],
                           "rows_pct_of_bound": 100 * t["bound_ms"] / t["rows_ms"],
                           "blocks": plan.blocks, "block_channels": 8 * plan.nb,
-                          "channel_groups": plan.groups, "tile": [plan.tw, plan.th]})
+                          "channel_groups": plan.groups, "tile": [plan.tw, plan.th],
+                          "rows_blocks": rplan.blocks, "rows_smem_bytes": rplan.smem,
+                          "rows_block_channels": 8 * rplan.nb,
+                          "rows_channel_groups": rplan.groups, "rows_band": [64, rplan.th]})
     conv_bound_by = "bytes" if conv_sum["bytes_s"] >= conv_sum["ops_s"] else "operations"
     emit({"phase": "conv_timing", "card": smi, "per_shape": per_shape,
           "frame_pct_of_bound": 100 * conv_sum["bound_ms"] / conv_sum["ms"],
@@ -479,7 +497,9 @@ def main():
           "bound_by": conv_bound_by,
           "columns": "ms = tile kernel (K2), rows_ms = row-band kernel (K3): device time "
                      "per call, CUDA graph replay; call_ms = CUDA events around calls back "
-                     "to back (the host's dispatch included where it is slower)",
+                     "to back (the host's dispatch included where it is slower); rows_blocks, "
+                     "rows_smem_bytes = K3's launch: blocks and dynamic shared memory per "
+                     "block (rows_band = segment x band rows)",
           "library_call": "F.conv2d(bf16, channels_last, bias) -- conv + bias only"})
     del conv_rows
 

@@ -284,6 +284,50 @@ def test_conv_kernel_matches_plain_on_card(cuda_device, n, h, w, c, co, affine):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,co,affine", [(0, 25, 25, 202, 101, False),
+                                               (0, 50, 50, 101, 202, True),
+                                               (0, 132, 130, 10, 32, True),
+                                               (0, 200, 160, 64, 32, False),
+                                               (0, 37, 53, 43, 57, True),
+                                               (0, 800, 64, 64, 3, True),
+                                               (0, 64, 64, 3, 3, False),
+                                               (4, 50, 50, 57, 76, True),
+                                               (3, 136, 136, 86, 32, False)])
+def test_row_band_kernel_matches_plain_on_card(cuda_device, n, h, w, c, co, affine):
+    """bfloat16 input through the row-band kernel, on the image and on the
+    zero-bordered layout: odd and aligned channel counts, Co = 202, widths
+    that are no multiple of the 64-pixel segment, 1-, 2- and 4-row bands, a
+    batch; its weights packed on the card as pack_weights_sm90 lays them
+    out."""
+    x, wt, b, aff = _conv_inputs(h, w, c, co, seed=c + co)
+    if n:
+        x = torch.stack([x.roll(i, 0) for i in range(n)])
+    xs = x.to(cuda_device, torch.bfloat16)
+    ws = wt.to(cuda_device, torch.bfloat16)
+    bs = b.to(cuda_device)
+    affs = {k: v.to(cuda_device) for k, v in aff.items()} if affine else None
+    want = conv_kernel.conv3x3_act_rows_plain(xs, ws, bs, 0.1, affs)
+    launches = (conv_kernel.KERNEL.launches, conv_kernel.ROWS_KERNEL.launches)
+    got = conv_kernel.conv3x3_act(xs, ws, bs, 0.1, affs)
+    padded = conv_kernel.conv3x3_act(conv_kernel.conv_input_pad(xs).contiguous(), ws, bs, 0.1,
+                                     affs, pre_padded=True, width=w)
+    torch.cuda.synchronize()
+    assert (conv_kernel.KERNEL.launches, conv_kernel.ROWS_KERNEL.launches) == (
+        launches[0], launches[1] + 2)
+    for y in (got, padded):
+        assert y.dtype == torch.bfloat16 and y.shape == want.shape
+        np.testing.assert_allclose(y.float().cpu().numpy(), want.float().cpu().numpy(),
+                                   rtol=1.6e-2, atol=1e-2)
+    n_cols = conv_kernel.rows_plan(max(n, 1), h, w, c, co).n_cols
+    assert torch.equal(conv_kernel._packed_weights(ws.clone(), torch.bfloat16, ws.device, n_cols),
+                       conv_kernel.pack_weights_sm90(ws, n_cols))
+    # an input that does not start on a 16-byte boundary gives the same result
+    xo = torch.empty(xs.numel() + 1, dtype=xs.dtype, device=cuda_device)[1:].view_as(xs)
+    xo.copy_(xs)
+    assert torch.equal(conv_kernel.conv3x3_act(xo, ws, bs, 0.1, affs), got)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n_faces", [300, 5000])
 def test_mesh_kernels_match_plain_on_card(cuda_device, n_faces):
     bvh = _soup_bvh(n_faces, n_faces).to(cuda_device)

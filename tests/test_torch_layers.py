@@ -109,6 +109,33 @@ def test_rows_pre_padded_and_packing_match_jax():
                                 pre_padded=True)
 
 
+# The bfloat16 row-band kernel reads its weights in pack_weights_sm90's
+# layout at the width rows_plan gives it: that packing unpacks to the
+# weights, and the conv computed from it (conv3x3_act_packed_plain on the
+# image, or on the interior of the zero-bordered layout) equals the JAX
+# row-band kernel in interpret mode, on the image and on the pre-padded
+# input, at the tolerance of the plain conv.
+@pytest.mark.parametrize("h,w,ci,co", [(16, 24, 10, 32), (8, 13, 64, 3), (16, 16, 43, 57)])
+def test_rows_packed_weights_match_pallas_kernel(h, w, ci, co):
+    x, wt, b, aff = _conv_inputs(h, w, ci, co, seed=2 * ci + co)
+    tw = torch.from_numpy(wt)
+    plan = conv_kernel.rows_plan(1, h, w, ci, co)
+    wp = conv_kernel.pack_weights_sm90(tw, plan.n_cols)
+    assert plan.n_cols >= co and plan.n_cols % 8 == 0
+    assert torch.equal(conv_kernel.unpack_weights_sm90(wp, ci, co), tw)
+    jxp = jax_conv.conv_input_pad(jnp.asarray(x))
+    txp = conv_kernel.conv_input_pad(torch.from_numpy(x))
+    for jx, tx, padded in ((jnp.asarray(x), torch.from_numpy(x), False), (jxp, txp, True)):
+        want = np.asarray(jax_conv.conv3x3_act(
+            jx, jnp.asarray(wt), jnp.asarray(b), 0.1, affine=_j(aff), interpret=True,
+            pre_padded=padded, width=w if padded else None))
+        image = tx[1:h + 1, 1:w + 1] if padded else tx
+        got = conv_kernel.conv3x3_act_packed_plain(image, wp, torch.from_numpy(b), 0.1,
+                                                   affine=_t(aff))
+        assert got.shape == (h, w, co)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5)
+
+
 def test_conv_wrappers_take_batches_and_bf16():
     x, wt, b, aff = _conv_inputs(8, 12, 6, 5, seed=9, n=3)
     xb = torch.from_numpy(x).bfloat16()

@@ -239,3 +239,27 @@ def test_conv_plan_fills_the_card_and_reads_the_input_once(r, c, co):
         tiles = plan.blocks // plan.groups
         if tiles >= conv_kernel.SMS:
             assert plan.groups == 1 and plan.n_cols == -(-cout // 8) * 8
+
+
+@pytest.mark.parametrize("r,c,co", FRAME_CONVS)
+def test_rows_plan_fills_the_card_and_fits_the_sm(r, c, co):
+    """The row-band kernel's launch at each of an 800x800 frame's forward
+    conv shapes: at least ``ROWS_FILL`` blocks; a block covers every output
+    channel unless the bands alone are fewer; a band's two warpgroups run
+    64-pixel rows (two rows each only up to 32 channels, where the 4-row
+    bands fill the card); and the dynamic shared memory fits a block, two
+    of them at 400x400 and 800x800."""
+    plan = conv_kernel.rows_plan(1, r, r, c, co)
+    assert plan.blocks >= conv_kernel.ROWS_FILL
+    assert plan.nb in conv_kernel.BLOCK_GROUPS and plan.n_cols >= co
+    assert plan.mt in (1, 2) and plan.th == 2 * plan.mt
+    assert plan.mt == 1 or plan.nb <= 4
+    assert plan.mt == 2 or co > 32
+    bands = plan.blocks // plan.groups
+    assert bands == -(-r // 64) * -(-r // plan.th)
+    if bands >= conv_kernel.ROWS_FILL:
+        assert plan.groups == 1 and plan.n_cols == -(-co // 8) * 8
+    assert plan.smem <= 232448
+    if r >= 400:                # the large layers: two blocks on an SM at least
+        assert 2 * plan.smem <= 232448
+
