@@ -85,12 +85,12 @@ __device__ __forceinline__ float slab_entry(const float* row, V3 o, V3 inv, floa
   return ((tmax >= tmin) && (tmax >= 0.0f) && (entry < t_run)) ? entry : INFINITY;
 }
 
-// glm one-sided Moller-Trumbore against face row `fr`: the hit distance, or
-// +inf on a miss or a hit at t <= 0; u and w are the barycentrics.
-__device__ __forceinline__ float triangle_t(const float* fr, V3 o, V3 d, float* u_out,
-                                            float* w_out) {
-  V3 v0 = v3(fr[0], fr[1], fr[2]), v1 = v3(fr[3], fr[4], fr[5]), v2 = v3(fr[6], fr[7], fr[8]);
-  V3 e1 = sub(v1, v0), e2 = sub(v2, v0);
+// glm one-sided Moller-Trumbore against the face with corner v0 and edges
+// e1 = v1 - v0, e2 = v2 - v0: the hit distance, or +inf on a miss or a hit
+// at t <= 0 (so the result is never NaN and always > 0); u and w are the
+// barycentrics.
+__device__ __forceinline__ float triangle_t_edges(V3 v0, V3 e1, V3 e2, V3 o, V3 d,
+                                                  float* u_out, float* w_out) {
   V3 p = cross(d, e2);
   float a = dot(e1, p);
   bool front = a >= kFltEps;
@@ -104,6 +104,14 @@ __device__ __forceinline__ float triangle_t(const float* fr, V3 o, V3 d, float* 
   *u_out = u;
   *w_out = w;
   return (hit && t > 0.0f) ? t : INFINITY;
+}
+
+// The same test against face row `fr` (v0 v1 v2 ...), its edges subtracted
+// here.
+__device__ __forceinline__ float triangle_t(const float* fr, V3 o, V3 d, float* u_out,
+                                            float* w_out) {
+  V3 v0 = v3(fr[0], fr[1], fr[2]), v1 = v3(fr[3], fr[4], fr[5]), v2 = v3(fr[6], fr[7], fr[8]);
+  return triangle_t_edges(v0, sub(v1, v0), sub(v2, v0), o, d, u_out, w_out);
 }
 
 // Point (rotated barycentrics), unit normal (standard barycentrics) and

@@ -35,13 +35,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from collections import OrderedDict
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..utils.cuda_build import CudaKernel, check
+from ..utils.derived_cache import DerivedCache
 
 TH = 8                   # output rows per band of the JAX row-band kernel
 
@@ -187,24 +187,8 @@ def pack_weights_sm90(w: torch.Tensor, n_cols: Optional[int] = None) -> torch.Te
 
 
 # Packed weights of recent calls: the denoiser's 28 layers call with the
-# same weight tensors every frame.  An entry is found by the tensor's
-# identity and version counter (an in-place update misses) and holds the
-# tensor, so its storage cannot pass to another tensor while cached.
-_PACKED: "OrderedDict[tuple, Tuple[torch.Tensor, torch.Tensor]]" = OrderedDict()
-_PACKED_ENTRIES = 64
-
-
-def _cached_packing(w: torch.Tensor, key: tuple, pack) -> torch.Tensor:
-    key = (id(w), w._version) + key
-    hit = _PACKED.get(key)
-    if hit is not None and hit[0] is w:
-        _PACKED.move_to_end(key)
-        return hit[1]
-    wp = pack()
-    _PACKED[key] = (w, wp)
-    if len(_PACKED) > _PACKED_ENTRIES:
-        _PACKED.popitem(last=False)
-    return wp
+# same weight tensors every frame.
+_PACKED = DerivedCache(64)
 
 
 def _packed_weights(w: torch.Tensor, dtype: torch.dtype, dev: torch.device,
@@ -222,7 +206,7 @@ def _packed_weights(w: torch.Tensor, dtype: torch.dtype, dev: torch.device,
                 torch.cuda.current_stream().cuda_stream)
         check(rc, "conv3x3_act weight packing")
         return wp
-    return _cached_packing(w, (dtype, dev, n_cols), pack)
+    return _PACKED.get(w, (dtype, dev, n_cols), pack)
 
 
 def unpack_weights_sm90(wp: torch.Tensor, c: int, co: int) -> torch.Tensor:
@@ -476,7 +460,7 @@ def conv3x3_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     f32_in = x.dtype == torch.float32
     if f32_in:
         plan = None
-        wk = _cached_packing(w, ("rows", dev), lambda: pack_weights(
+        wk = _PACKED.get(w, ("rows", dev), lambda: pack_weights(
             w.detach().to(device=dev, dtype=x.dtype)).contiguous())
     else:
         plan = rows_plan(n, h, w_pix, c, co)

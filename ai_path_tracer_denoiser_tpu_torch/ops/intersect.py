@@ -137,8 +137,12 @@ def intersect_geoms_v(geoms: Geoms, o: Vec3, d: Vec3):
 
 def _triangle_t(v0: Vec3, v1: Vec3, v2: Vec3, o: Vec3, d: Vec3):
     """Broadcast Moller-Trumbore (glm convention) -> (t, u, w, hit)."""
-    e1 = v1 - v0
-    e2 = v2 - v0
+    return _triangle_t_edges(v0, v1 - v0, v2 - v0, o, d)
+
+
+def _triangle_t_edges(v0: Vec3, e1: Vec3, e2: Vec3, o: Vec3, d: Vec3):
+    """``_triangle_t`` on a face given as its corner v0 and its edges
+    e1 = v1 - v0, e2 = v2 - v0 (the layout K4 reads)."""
     p = d.cross(e2)
     a = e1.dot(p)
     front = a >= _FLT_EPS                      # glm: a < eps -> miss

@@ -12,11 +12,17 @@ computes the same function (every cull of the traversal is conservative).
 The JAX package's "v2p" and "v2s" modes differ only in how finely a tile of
 rays gates a cluster (whole tile or 128-lane column).  The CUDA kernel gates
 per ray, finer than either, so both modes run it.
+
+The kernel reads the faces from a second table, ``packed_faces``: v0 and
+the two edges per face in 12 floats, built once per hierarchy on the
+table's device (its plain version is ``pack_faces_v0e1e2``).
+``traversal_work`` counts the tests the rays need (the kernel's bound),
+``traversal_warp_work`` what a thread-per-ray warp would issue for them.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,6 +30,7 @@ from ..ops.bvh import CLUSTER, FANOUT, MeshBVH
 from ..ops.intersect import scan_faces_v
 from ..ops.vec3 import Vec3
 from ..utils.cuda_build import CudaKernel, check
+from ..utils.derived_cache import DerivedCache
 
 _INF = float("inf")
 MAX_KERNEL_FACES = 1_000_000   # keeps face and pair indices well inside int32
@@ -32,11 +39,44 @@ MAX_KERNEL_FACES = 1_000_000   # keeps face and pair indices well inside int32
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.aptd_mesh_bvh_v2p.restype = i
-    lib.aptd_mesh_bvh_v2p.argtypes = [p] * 7 + [i] + [p] * 4 + [i] * 4 + [p] * 3
+    lib.aptd_mesh_bvh_v2p.argtypes = [p] * 7 + [i] + [p] * 5 + [i] * 4 + [p] * 4
 
 
-KERNEL = CudaKernel("mesh_bvh_v2p", "mesh_bvh_v2p.cu", extra_flags=("-fmad=false",),
-                    declare=_declare, headers=("mesh_common.cuh",))
+# Live rays in a warp from which the kernel tests a cluster's faces lane by
+# ray (each live lane all 32 faces) instead of ray by ray (the 32 lanes on
+# the 32 faces of one ray at a time).  Chosen by chip_smoke.py's sweep on the
+# card (PERF.md); a constant of the build, not an option.
+K_THR = 16
+
+
+def kernel_build(k_thr: int, name: str = "mesh_bvh_v2p") -> CudaKernel:
+    """K4's source built with the threshold ``k_thr``."""
+    return CudaKernel(name, "mesh_bvh_v2p.cu",
+                      extra_flags=("-fmad=false", f"-DAPTD_K4_K_THR={k_thr}"),
+                      declare=_declare, headers=("mesh_common.cuh",))
+
+
+KERNEL = kernel_build(K_THR)
+
+
+EDGE_COLS = 12    # v0 | e1 = v1 - v0 | e2 = v2 - v0 | 0 0 0: three 16-byte pieces
+
+
+def pack_faces_v0e1e2(faces_packed: torch.Tensor) -> torch.Tensor:
+    """The face table K4 reads: (F, 19) rows -> (F, 12) rows [v0 | v1 - v0 |
+    v2 - v0 | 0 0 0], the edges the same float32 subtractions that the
+    triangle test makes (``ops/intersect.py:_triangle_t``)."""
+    v0, v1, v2 = faces_packed[:, 0:3], faces_packed[:, 3:6], faces_packed[:, 6:9]
+    return torch.cat([v0, v1 - v0, v2 - v0, torch.zeros_like(v0)], 1)
+
+
+_EDGES = DerivedCache(8)
+
+
+def packed_faces(bvh: MeshBVH) -> torch.Tensor:
+    """``pack_faces_v0e1e2(bvh.faces_packed)`` on the table's device, built
+    once per hierarchy."""
+    return _EDGES.get(bvh.faces_packed, (), lambda: pack_faces_v0e1e2(bvh.faces_packed))
 
 
 def _slab_entry(rows: torch.Tensor, o: Vec3, inv: Vec3):
@@ -151,6 +191,19 @@ def hit_planes(out: torch.Tensor, mat: torch.Tensor):
     return out[0], Vec3(out[1], out[2], out[3]), Vec3(out[4], out[5], out[6]), mat
 
 
+# The persistent blocks' batch counter, one int32 per (device, stream): the
+# launcher zeroes it on the stream before each launch, so calls in order on
+# one stream can share it.
+_COUNTERS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _batch_counter(dev: torch.device, stream: int) -> torch.Tensor:
+    counter = _COUNTERS.get((dev, stream))
+    if counter is None:
+        counter = _COUNTERS[dev, stream] = torch.empty((1,), dtype=torch.int32, device=dev)
+    return counter
+
+
 def mesh_intersect_bvh_v2p(bvh: MeshBVH, o: Vec3, d: Vec3,
                            t_cull: Optional[torch.Tensor] = None,
                            lanes: Optional[int] = None, subtile: bool = False,
@@ -172,15 +225,18 @@ def mesh_intersect_bvh_v2p(bvh: MeshBVH, o: Vec3, d: Vec3,
         return mesh_intersect_bvh_v2p_plain(bvh, o, d, t_cull)
     dev = t_cull.device
     planes = ray_planes(o, d, t_cull)
-    tables = table_ptrs(bvh, dev)
+    faces, *bounds = table_ptrs(bvh, dev)
+    edges = packed_faces(bvh)
     out, mat = hit_buffers(n, dev)
     lib = KERNEL.lib()
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        next_batch = _batch_counter(dev, stream)
         rc = lib.aptd_mesh_bvh_v2p(
-            *(p.data_ptr() for p in planes), n, *tables, bvh.num_faces,
+            *(p.data_ptr() for p in planes), n, faces,
+            table_ptr(edges, EDGE_COLS, dev), *bounds, bvh.num_faces,
             bvh.n_clusters_real, bvh.n_supers_real, bvh.n_hypers_real,
-            out.data_ptr(), mat.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), mat.data_ptr(), next_batch.data_ptr(), stream)
     check(rc, "mesh BVH kernel")
     KERNEL.launches += 1
     return hit_planes(out, mat)
@@ -208,7 +264,56 @@ def traversal_work(bvh: MeshBVH, o: Vec3, d: Vec3, t_cull: torch.Tensor,
     live_c = live_count(bvh.cluster_bounds, bvh.n_clusters_real)
     node_tests = n * bvh.n_hypers_real + FANOUT * (live_h + live_s)
     face_tests = CLUSTER * live_c
+    return _traversal_bytes(bvh, n), face_tests, node_tests
+
+
+def _traversal_bytes(bvh: MeshBVH, n: int) -> int:
+    """Bytes a traversal of ``n`` rays must move: seven ray planes in, eight
+    result planes out, the hierarchy's tables once."""
     tables = sum(t.numel() for t in (bvh.faces_packed, bvh.cluster_bounds,
                                      bvh.super_bounds, bvh.hyper_bounds))
-    n_bytes = 4 * (7 * n + 8 * n + tables)
-    return n_bytes, face_tests, node_tests
+    return 4 * (7 * n + 8 * n + tables)
+
+
+def _live_per_group(table: torch.Tensor, real: int, o: Vec3, inv: Vec3,
+                    t_cull: torch.Tensor, group: int, chunk: int) -> torch.Tensor:
+    """(groups,) int64: for each ``group`` consecutive rays, the rows of
+    ``table[:real]`` that any of them is live in at ``t_cull``."""
+    n = t_cull.shape[0]
+    n_groups = -(-n // group)
+    counts = torch.zeros((n_groups,), dtype=torch.int64, device=t_cull.device)
+    for lo in range(0, real, chunk):
+        live = _slab_live(table[lo:min(lo + chunk, real)], o, inv, t_cull)
+        tail = live.new_zeros((live.shape[0], n_groups * group - n))
+        counts += torch.cat([live, tail], 1).reshape(live.shape[0], n_groups, group).any(2).sum(0)
+    return counts
+
+
+def warp_live_clusters(bvh: MeshBVH, o: Vec3, d: Vec3, t_cull: torch.Tensor,
+                       group: int = 32, chunk: int = 64) -> torch.Tensor:
+    """(groups,) int64: for each ``group`` consecutive rays, the clusters
+    that any of them is live in at ``t_cull``; a thread-per-ray warp issues
+    the 32 face tests of each."""
+    inv = Vec3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
+    return _live_per_group(bvh.cluster_bounds, bvh.n_clusters_real, o, inv, t_cull,
+                           group, chunk)
+
+
+def traversal_warp_work(bvh: MeshBVH, o: Vec3, d: Vec3, t_cull: torch.Tensor,
+                        group: int = 32, chunk: int = 64):
+    """(bytes, face tests, node tests) that a thread-per-ray kernel issues
+    when each ``group`` consecutive rays share a warp: a node or cluster
+    that any ray of the group is live in costs all ``group`` lanes, live or
+    masked off.  Liveness is counted level by level at ``t_cull``, as
+    ``traversal_work`` counts it, which this equals at ``group=1``; the
+    ratio of the two counts is such a kernel's SIMT efficiency."""
+    inv = Vec3(1.0 / d.x, 1.0 / d.y, 1.0 / d.z)
+    n = t_cull.shape[0]
+    live_h, live_s, live_c = (
+        int(_live_per_group(table, real, o, inv, t_cull, group, chunk).sum())
+        for table, real in ((bvh.hyper_bounds, bvh.n_hypers_real),
+                            (bvh.super_bounds, bvh.n_supers_real),
+                            (bvh.cluster_bounds, bvh.n_clusters_real)))
+    node_tests = group * (-(-n // group) * bvh.n_hypers_real + FANOUT * (live_h + live_s))
+    face_tests = group * CLUSTER * live_c
+    return _traversal_bytes(bvh, n), face_tests, node_tests

@@ -6,10 +6,19 @@ loader for it.  It follows the same rules as the JAX package's loader —
 load the library if present, else try ``make`` once, else report it
 unavailable — so both packages parse OBJ files the same way in the same
 checkout.  Pure-Python fallbacks exist for every entry point.
+
+Several processes may find the library missing at once (pytest-xdist
+workers each import the loaders while collecting).  ``make`` writes its
+target in place, so a process that loads the file while another is still
+linking it gets a truncated ELF and reports the library unavailable.  This
+loader therefore builds under an exclusive lock on the Makefile, into a
+name of its own, and renames the finished library into place: it never
+leaves a half-written library at the final path.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import os
 import subprocess
@@ -19,21 +28,42 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libaptd_native.so")
+_LIB_NAME = "libaptd_native.so"
 
 
-@functools.lru_cache(maxsize=1)
-def _load() -> Optional[ctypes.CDLL]:
-    if not os.path.exists(_LIB_PATH):
+def _build(native_dir: str) -> None:
+    """Build ``native_dir``'s library unless it exists: one process at a
+    time (a lock on the Makefile), into a temporary name, then renamed."""
+    lib_path = os.path.join(native_dir, _LIB_NAME)
+    with open(os.path.join(native_dir, "Makefile"), "rb") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(lib_path):         # built while this one waited
+            return
+        tmp = f"{_LIB_NAME}.{os.getpid()}.tmp"
+        tmp_path = os.path.join(native_dir, tmp)
+        try:
+            subprocess.run(["make", "-C", native_dir, f"TARGET={tmp}"],
+                           check=True, capture_output=True, timeout=120)
+            os.replace(tmp_path, lib_path)
+        finally:
+            if os.path.exists(tmp_path):
+                os.remove(tmp_path)
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(native_dir: str = _NATIVE_DIR) -> Optional[ctypes.CDLL]:
+    """The native library of ``native_dir``, built first if missing; None
+    when it cannot be built or loaded."""
+    lib_path = os.path.join(native_dir, _LIB_NAME)
+    if not os.path.exists(lib_path):
         if os.environ.get("APTD_NO_NATIVE"):
             return None
         try:
-            subprocess.run(["make", "-C", _NATIVE_DIR],
-                           check=True, capture_output=True, timeout=120)
+            _build(native_dir)
         except (OSError, subprocess.SubprocessError):
             return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
+        lib = ctypes.CDLL(lib_path)
     except OSError:
         return None
     lib.aptd_obj_load.restype = ctypes.c_int
@@ -47,13 +77,13 @@ def _load() -> Optional[ctypes.CDLL]:
 
 
 def available() -> bool:
-    return _load() is not None
+    return load_library() is not None
 
 
 def load_obj(path: str, transform: Optional[np.ndarray] = None,
              recompute_normals: bool = False) -> Tuple[np.ndarray, np.ndarray]:
     """OBJ -> (vertices (F,3,3), normals (F,3,3)) world-space float32."""
-    lib = _load()
+    lib = load_library()
     if lib is None:
         raise RuntimeError("native library unavailable")
     if transform is None:

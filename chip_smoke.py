@@ -26,7 +26,11 @@ per-ray kernel, on a call with coincident faces in different clusters, and
 through `interactive` (frames equal to the per-ray traversal's bit for bit,
 8 launches per frame) and `bench`; `render` with material sort, first-bounce
 cache and motion blur; the three traversals timed side by side on a sorted
-and an unsorted frame; and the visit-cost probe
+and an unsorted frame of each mesh scene, with the tests a thread-per-ray
+warp would issue for them, the per-ray kernel held to its plain version on
+every call of those four frames and its builds at live-ray thresholds 1
+and 33 (each cluster tested one of its two ways) held to it; and the
+visit-cost probe
 (`tools/mm_feasibility.py`: the scalar and the tensor-core visit kernel
 against their plain versions, then microseconds per visit).  The conv
 kernels are checked on the frame's 28 shapes (bfloat16, float32 and batched
@@ -80,6 +84,10 @@ TF32_FLOPS = 495e12
 IMPL_FRAMES = 2               # interactive frames per traversal and sort setting
 BENCH_ITERS = {"cornell_box": 64, "blob": 3, "statue": 2}
 PROBE_VISITS = 32768          # the visit-cost probe's own count
+# K4 also built at these live-ray thresholds (mesh_kernel_v2p.K_THR): 1 tests
+# every visited cluster lane by ray, 33 ray by ray; each must equal K4
+K4_WITNESSES = (1, 33)
+STATUE_SLICE = 64000          # rays of a statue call held whole-plain past bounce 1
 OPS_VISIT_TEST = 12           # hit test + division per (face, ray) of the product visit
 
 
@@ -210,7 +218,7 @@ def main():
         derive_camera, load_scene, orbit_camera, orbit_params_from_camera)
     from ai_path_tracer_denoiser_tpu_torch.ops import bvh as mesh_bvh
     from ai_path_tracer_denoiser_tpu_torch.ops.vec3 import Vec3
-    from ai_path_tracer_denoiser_tpu_torch.tools import mm_feasibility
+    from ai_path_tracer_denoiser_tpu_torch.tools import k4_sweep, mm_feasibility
     from ai_path_tracer_denoiser_tpu_torch.utils.cuda_build import build_all
     from ai_path_tracer_denoiser_tpu_torch.utils.imageio import read_png, save_png_scaled
 
@@ -234,8 +242,11 @@ def main():
                mesh_binned.PAIR_KERNEL, mesh_kernel.KERNEL, mesh_kernel_v3.KERNEL,
                mm_feasibility.VPU_KERNEL, mm_feasibility.MMA_KERNEL)
     require(len(kernels) == 10, "ten kernels")
+    # K4 at the witness thresholds (phase 10e), not counted among the ten
+    k4_witnesses = {k: mesh_kernel_v2p.kernel_build(k, f"mesh_bvh_v2p_kthr{k}")
+                    for k in K4_WITNESSES}
     t0 = time.time()
-    build_all(kernels)
+    build_all(kernels + tuple(k4_witnesses.values()))
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
                       if "registers" in ln or "spill" in ln] for k in kernels}
     emit({"phase": "build", "seconds": round(time.time() - t0, 2), "ptxas": ptxas})
@@ -1320,20 +1331,58 @@ def main():
     # Every call of one frame (all bounces), recorded from a carry-sorted
     # frame (the default) and from an unsorted one, timed alone through each
     # kernel; ms per frame beside the bound of the work the rays need
-    # (`traversal_work`: the same for every traversal).
+    # (`traversal_work`: the same for every traversal) and what a
+    # thread-per-ray warp would issue for it (`traversal_warp_work`).  K4
+    # is held to its plain version on every call, and its witness builds
+    # (K4_WITNESSES: each cluster worked one way only) to K4.
     traversal_fns = {
         "mesh_bvh_v2p": lambda b, o, d, tc: mesh_kernel_v2p.mesh_intersect_bvh_v2p(b, o, d, tc),
         "mesh_bvh_v2@128": lambda b, o, d, tc: mesh_kernel.mesh_intersect_bvh(b, o, d, tc, 128),
         "mesh_bvh_v2@1024": lambda b, o, d, tc: mesh_kernel.mesh_intersect_bvh(b, o, d, tc, 1024),
         "mesh_bvh_v3": lambda b, o, d, tc: mesh_kernel_v3.mesh_intersect_bvh_v3(b, o, d, tc)}
+
     impl_timing = {}
     for name, sc in mesh_scenes.items():
         for order in ("sorted", "unsorted"):
             calls = [a[:4] for a in (recorded[name]["v2p"]["v2p"] if order == "sorted" else
                                      record_frame(sc, "v2p", mesh_octant_sort=False)["v2p"])]
+            # K4 against its plain version on every call of the frame: whole,
+            # except the statue's calls past bounce 1 (their first
+            # STATUE_SLICE rays; the dense scan takes 17 s per whole call)
+            # and its sorted bounces 0-1, held whole in phase 7
+            k4_out = [flat_hit(mesh_kernel_v2p.mesh_intersect_bvh_v2p(*a)) for a in calls]
+            equal = []
+            for b, (a, got) in enumerate(zip(calls, k4_out)):
+                if name == "statue" and order == "sorted" and b < 2:
+                    continue
+                sl = slice(0, None if name == "blob" or b < 2 else STATUE_SLICE)
+                want = plain_v2p(a[0], *subset(a[1:], sl))
+                equal.append(all_equal(subset(got, sl), want))
+                mesh_err["mesh_bvh_v2p"] = max(mesh_err["mesh_bvh_v2p"],
+                                               max_abs_diff(subset(got, sl), want))
+            witnesses_equal = {}
+            for k_thr, kern in k4_witnesses.items():
+                with k4_sweep.launching(kern):
+                    witnesses_equal[k_thr] = all(all_equal(flat_hit(
+                        mesh_kernel_v2p.mesh_intersect_bvh_v2p(*a)), got)
+                        for a, got in zip(calls, k4_out))
+            emit({"phase": "mesh_v2p_frame_check", "scene": name,
+                  "rays_carry_sorted": order == "sorted", "card": smi,
+                  "calls_equal_to_plain": equal, "witnesses_equal_to_k4": witnesses_equal,
+                  "k_thr": mesh_kernel_v2p.K_THR,
+                  "bar": "t, point, normal, material equal bit for bit (torch.equal) to "
+                         "the dense scan on every call (the statue's past bounce 1 on "
+                         f"rays [0, {STATUE_SLICE})); K4 at each K_THR of K4_WITNESSES "
+                         "equal to K4"})
+            require(all(equal) and all(witnesses_equal.values()),
+                    f"K4 on the {order} {name} frame")
             work = [mesh_kernel_v2p.traversal_work(*a) for a in calls]
+            warp = [mesh_kernel_v2p.traversal_warp_work(*a) for a in calls]
+            per_warp = [mesh_kernel_v2p.warp_live_clusters(*a) for a in calls]
             bounds = [bound_ms(nb, ft * OPS_TRIANGLE + nt * OPS_AABB, FP32_FLOPS)
                       for nb, ft, nt in work]
+            sums = [sum(w_[k] for w_ in work) for k in (1, 2)]
+            unions = [sum(w_[k] for w_ in warp) for k in (1, 2)]
             per_kernel = {k: time_calls(fn, calls, reps=3) for k, fn in traversal_fns.items()}
             impl_timing[name, order] = {k: sum(v) for k, v in per_kernel.items()}
             emit({"phase": "mesh_impl_timing", "scene": name, "rays_carry_sorted": order == "sorted",
@@ -1341,8 +1390,21 @@ def main():
                   "frame_ms": impl_timing[name, order], "per_launch_ms": per_kernel,
                   "frame_bound_ms": sum(b for b, _ in bounds),
                   "bound_by": sorted({by for _, by in bounds}),
-                  "frame_face_tests": sum(ft for _, ft, _ in work),
-                  "frame_node_tests": sum(nt for _, _, nt in work)})
+                  "frame_face_tests": sums[0], "frame_node_tests": sums[1],
+                  # what a thread-per-ray warp issues: the union over each
+                  # 32 consecutive rays (traversal_warp_work); sum / union
+                  # is that kernel's SIMT efficiency
+                  "frame_face_tests_warp_union": unions[0],
+                  "frame_node_tests_warp_union": unions[1],
+                  "simt_efficiency_faces": sums[0] / max(unions[0], 1),
+                  "simt_efficiency_nodes": sums[1] / max(unions[1], 1),
+                  "simt_efficiency_ops": (sums[0] * OPS_TRIANGLE + sums[1] * OPS_AABB)
+                  / max(unions[0] * OPS_TRIANGLE + unions[1] * OPS_AABB, 1),
+                  "live_rays_per_launch": [int((a[3] > float("-inf")).sum()) for a in calls],
+                  # the warps' spread: clusters that one of a warp's rays is
+                  # live in, heaviest warp and mean warp of each launch
+                  "warp_live_clusters_max": [int(w_.max()) for w_ in per_warp],
+                  "warp_live_clusters_mean": [float(w_.double().mean()) for w_ in per_warp]})
 
     # ---- 10f. the visit-cost probe: K9a and K9b ----
     p_rays, p_faces, p_coeffs = mm_feasibility.probe_inputs(0, dev)
@@ -1445,7 +1507,10 @@ def main():
         {"name": kname, "route": "cuda",
          "source": f"ai_path_tracer_denoiser_tpu_torch/csrc/{kname}.cu",
          "replaces": replaces, "launches": mesh_launches[scene_][kname],
-         "max_abs_err": mesh_err[kname], **mesh_summary[kname], "library_ms": None}
+         "max_abs_err": mesh_err[kname], **mesh_summary[kname], "library_ms": None,
+         **({"frame_ms_by_scene_and_order": {f"{sc_}:{order}": t["mesh_bvh_v2p"]
+                                             for (sc_, order), t in impl_timing.items()}}
+            if kname == "mesh_bvh_v2p" else {})}
         for kname, replaces, scene_ in (
             ("mesh_bvh_v2p",
              "ai_path_tracer_denoiser_tpu/render/mesh_kernel_v2p.py:228", "blob"),

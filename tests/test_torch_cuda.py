@@ -34,6 +34,7 @@ import torch
 
 from ai_path_tracer_denoiser_tpu_torch.config import ModelOptions, RenderOptions, TrainOptions
 from ai_path_tracer_denoiser_tpu_torch.models import conv_kernel, layers
+from ai_path_tracer_denoiser_tpu_torch.ops import intersect as tintersect
 from ai_path_tracer_denoiser_tpu_torch.ops.bvh import build_mesh_bvh
 from ai_path_tracer_denoiser_tpu_torch.ops.vec3 import Vec3
 from ai_path_tracer_denoiser_tpu_torch.render import (assemble_gbuffer, cuda_backend,
@@ -360,6 +361,136 @@ def test_mesh_kernels_match_plain_on_card(cuda_device, n_faces):
     assert torch.equal(t_k, t_p) and torch.equal(f_k, f_p) and (f_p >= 0).sum() > 0
     for caps in (dict(lcap=8192, lcapb=8192), dict(lcap=64, lcapb=64)):
         assert _all_equal(mesh_binned.mesh_intersect_binned(bvh, o, d, tc, **caps), want)
+
+
+def _warp_rays(faces, n_warps, live, seed, device):
+    """Warps of 32 rays.  In each warp the first ``live`` lanes aim, from
+    nearby origins outside the soup, at points inside the faces of one
+    cluster (a cluster of its own per warp), so that exactly ``live`` lanes
+    are live in that cluster; the other lanes are dead (t_cull = -inf).
+    ``faces``: (F, 3, 3) numpy, F a multiple of 32."""
+    rng = np.random.default_rng(seed)
+    n = 32 * n_warps
+    o = np.empty((3, n), np.float32)
+    target = np.empty((3, n))
+    clusters = rng.permutation(len(faces) // 32)[:n_warps]
+    for wi, c in enumerate(clusters):
+        u = rng.normal(size=3)
+        start = 9.0 * u / np.linalg.norm(u)
+        lanes = slice(32 * wi, 32 * wi + 32)
+        o[:, lanes] = (start[:, None] + rng.uniform(-0.2, 0.2, (3, 32))).astype(np.float32)
+        picked = faces[32 * c + rng.integers(0, 32, 32)]
+        target[:, lanes] = np.einsum("nc,ncx->xn", rng.dirichlet(np.ones(3), 32), picked)
+    d = target - o
+    d = (d / np.linalg.norm(d, axis=0, keepdims=True)).astype(np.float32)
+    tc = np.full(n, -np.inf, np.float32)
+    lane = np.arange(n) % 32
+    tc[lane < live] = np.inf
+    tc[(lane < live) & (lane % 3 == 1)] = rng.uniform(5.0, 12.0, n)[(lane < live) & (lane % 3 == 1)]
+    vec = lambda a: Vec3(*(torch.from_numpy(np.ascontiguousarray(c)).to(device) for c in a))
+    return vec(o), vec(d), torch.from_numpy(tc).to(device)
+
+
+def _k4_equals_plain(bvh, o, d, tc):
+    launches = mesh_kernel_v2p.KERNEL.launches
+    got = mesh_kernel_v2p.mesh_intersect_bvh_v2p(bvh, o, d, tc)
+    torch.cuda.synchronize()
+    assert mesh_kernel_v2p.KERNEL.launches == launches + 1
+    want = mesh_kernel_v2p.mesh_intersect_bvh_v2p_plain(bvh, o, d, tc)
+    assert _all_equal(got, want)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", ["1", "K_THR-1", "K_THR", "32"])
+def test_k4_both_cluster_branches_match_plain_on_card(cuda_device, live):
+    # k = popc(live mask) < K_THR: ray by ray over the 32 lanes; else lane by ray
+    k = {"1": 1, "K_THR-1": mesh_kernel_v2p.K_THR - 1, "K_THR": mesh_kernel_v2p.K_THR,
+         "32": 32}[live]
+    bvh = _soup_bvh(4096, 9)
+    faces = bvh.faces_packed[:4096, :9].numpy().reshape(-1, 3, 3)
+    bvh = bvh.to(cuda_device)
+    o, d, tc = _warp_rays(faces, 96, k, 4, cuda_device)
+    want = _k4_equals_plain(bvh, o, d, tc)
+    hits = torch.isfinite(want[0]).reshape(-1, 32)
+    assert int(hits[:, :k].sum()) > 96 * k // 2 and not hits[:, k:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [1, 32])
+def test_k4_exact_ties_match_plain_on_card(cuda_device, live):
+    # 128 faces in file order.  Cluster 2 repeats faces 0..30 of cluster 0
+    # with other materials (ties across clusters); in cluster 0 face 5
+    # repeats face 4 with another material (a tie inside one cluster).
+    rng = np.random.default_rng(7)
+
+    def blob(center):
+        c = np.asarray(center) + rng.uniform(-0.3, 0.3, (32, 1, 3))
+        return (c + rng.uniform(-0.15, 0.15, (32, 3, 3))).astype(np.float32)
+
+    tri = [blob((0, 0, 0)), blob((0.3, 0, 0)), None, blob((0, 0.4, 0))]
+    tri[0][5] = tri[0][4]
+    tri[2] = tri[0].copy()
+    tri[2][31] = np.array([[-5, -5, -5], [5, 5, 5], [5, 5, 5.001]], np.float32)
+    tri = np.concatenate(tri)
+    nrm = rng.normal(size=(128, 3, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+    mats = rng.integers(0, 5, 128).astype(np.int32)
+    mats[5] = (mats[4] + 1) % 5
+    mats[64:95] = (mats[0:31] + 1) % 5
+    bvh = build_mesh_bvh(tri, nrm, mats, reorder=False)[0].to(cuda_device)
+    # every warp aims at cluster 0 (faces 0..31 of the first "cluster")
+    o, d, tc = _warp_rays(np.concatenate([tri[:32]] * 256), 256, live, 5, cuda_device)
+    want = _k4_equals_plain(bvh, o, d, tc)
+    v4 = [Vec3(*(torch.tensor(float(c), device=cuda_device) for c in tri[4, k]))
+          for k in range(3)]
+    t4, _, _, hit4 = tintersect._triangle_t(*v4, o, d)
+    assert int((hit4 & (t4 == want[0])).sum()) > 0    # faces 4 and 5 tie and win
+    rest = build_mesh_bvh(tri[32:], nrm[32:], mats[32:], reorder=False)[0].to(cuda_device)
+    other = mesh_kernel_v2p.mesh_intersect_bvh_v2p_plain(rest, o, d, tc)
+    tied = torch.isfinite(want[0]) & (other[0] == want[0]) & (other[3] != want[3])
+    assert int(tied.sum()) > 0                        # the smaller cluster index won
+
+
+@pytest.mark.cuda
+def test_k4_dead_lanes_nan_slabs_and_ragged_tail_match_plain_on_card(cuda_device):
+    bvh = _soup_bvh(5000, 5000).to(cuda_device)
+    o, d, tc = _soup_rays(8192 + 37, 8, bvh.super_bounds.cpu().numpy(), cuda_device)
+    tc[:32] = float("-inf")                           # a warp with no live lane
+    tc[40:8192:13] = float("nan")                     # NaN cull distances: no hit
+    want = _k4_equals_plain(bvh, o, d, tc)
+    assert not torch.isfinite(want[0][:32]).any() and not torch.isfinite(want[0][40:8192:13]).any()
+    zero_d = (o.x == float(bvh.super_bounds[0, 0])) & (d.x == 0)   # 0 * inf slab planes
+    assert int(zero_d.sum()) > 100
+
+
+@pytest.mark.cuda
+def test_k4_calls_in_a_row_reset_the_batch_counter(cuda_device):
+    bvh = _soup_bvh(5000, 11).to(cuda_device)
+    bounds = bvh.super_bounds.cpu().numpy()
+    first = _soup_rays(8192 + 37, 12, bounds, cuda_device)
+    second = _soup_rays(20000, 13, bounds, cuda_device)
+    for rays in (first, second, first):
+        _k4_equals_plain(bvh, *rays)
+    again = [mesh_kernel_v2p.mesh_intersect_bvh_v2p(bvh, *first) for _ in range(2)]
+    assert _all_equal(*again)
+
+
+@pytest.mark.cuda
+def test_k4_calls_on_two_streams_match_plain_on_card(cuda_device):
+    # each stream has a batch counter of its own, so calls may overlap
+    bvh = _soup_bvh(5000, 14).to(cuda_device)
+    bounds = bvh.super_bounds.cpu().numpy()
+    rays = [_soup_rays(20000, seed, bounds, cuda_device) for seed in (15, 16)]
+    want = [mesh_kernel_v2p.mesh_intersect_bvh_v2p_plain(bvh, *r) for r in rays]
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    for _ in range(3):
+        got_main = mesh_kernel_v2p.mesh_intersect_bvh_v2p(bvh, *rays[0])
+        with torch.cuda.stream(side):
+            got_side = mesh_kernel_v2p.mesh_intersect_bvh_v2p(bvh, *rays[1])
+        torch.cuda.synchronize(cuda_device)
+        assert _all_equal(got_main, want[0]) and _all_equal(got_side, want[1])
 
 
 @pytest.mark.cuda
