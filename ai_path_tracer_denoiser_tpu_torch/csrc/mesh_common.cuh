@@ -76,6 +76,29 @@ __device__ __forceinline__ bool slab_live(const float* row, V3 o, V3 inv, float 
   return (tmax >= tmin) && (tmax >= 0.0f) && (fmaxf(tmin, 0.0f) < t_run);
 }
 
+// slab_live for operands under which no plane distance can be NaN: a finite
+// row, a finite origin and finite, nonzero inverse direction components.
+// Then (row - o) is finite or infinite and its product with inv is never
+// 0 * inf, so the NaN rule's selects never fire and are left out; the
+// result is slab_live's, bit for bit.
+__device__ __forceinline__ bool slab_live_no_nan(const float* row, V3 o, V3 inv, float t_run) {
+  const float os[3] = {o.x, o.y, o.z};
+  const float is[3] = {inv.x, inv.y, inv.z};
+  // x starts the interval: fmaxf(-inf, lo) = lo and fminf(inf, hi) = hi
+  // for lo, hi that are not NaN
+  float t1 = (row[0] - os[0]) * is[0];
+  float t2 = (row[3] - os[0]) * is[0];
+  float tmin = fminf(t1, t2), tmax = fmaxf(t1, t2);
+#pragma unroll
+  for (int a = 1; a < 3; ++a) {
+    t1 = (row[a] - os[a]) * is[a];
+    t2 = (row[a + 3] - os[a]) * is[a];
+    tmin = fmaxf(tmin, fminf(t1, t2));
+    tmax = fminf(tmax, fmaxf(t1, t2));
+  }
+  return (tmax >= tmin) && (tmax >= 0.0f) && (fmaxf(tmin, 0.0f) < t_run);
+}
+
 // The distance at which a live ray enters the box (clamped at 0); +inf for a
 // ray that is not live.
 __device__ __forceinline__ float slab_entry(const float* row, V3 o, V3 inv, float t_run) {
@@ -85,25 +108,44 @@ __device__ __forceinline__ float slab_entry(const float* row, V3 o, V3 inv, floa
   return ((tmax >= tmin) && (tmax >= 0.0f) && (entry < t_run)) ? entry : INFINITY;
 }
 
+// The triangle test below in two halves, for a caller that takes the
+// reciprocal of the determinant itself (mesh_binned_pair.cu).  First half:
+// p = d x e2 and the determinant a = e1 . p; only a face with a >= kFltEps
+// can be hit (the test is one-sided).
+__device__ __forceinline__ float triangle_det(V3 e1, V3 e2, V3 d, V3* p_out) {
+  V3 p = cross(d, e2);
+  *p_out = p;
+  return dot(e1, p);
+}
+
+// Second half, from p, whether the face is front (a >= kFltEps) and
+// fi = 1 / a (read only where front): is it a hit at t > 0 (t, u, w out)?
+// The reference's hit also asks t >= 0, which t > 0 implies.
+__device__ __forceinline__ bool triangle_hit(V3 v0, V3 e1, V3 e2, V3 o, V3 d, V3 p, bool front,
+                                             float fi, float* t_out, float* u_out,
+                                             float* w_out) {
+  V3 s = sub(o, v0);
+  float u = fi * dot(s, p);
+  V3 q = cross(s, e1);
+  float w = fi * dot(d, q);
+  float t = fi * dot(e2, q);
+  *t_out = t;
+  *u_out = u;
+  *w_out = w;
+  return front && u >= 0.0f && u <= 1.0f && w >= 0.0f && u + w <= 1.0f && t > 0.0f;
+}
+
 // glm one-sided Moller-Trumbore against the face with corner v0 and edges
 // e1 = v1 - v0, e2 = v2 - v0: the hit distance, or +inf on a miss or a hit
 // at t <= 0 (so the result is never NaN and always > 0); u and w are the
 // barycentrics.
 __device__ __forceinline__ float triangle_t_edges(V3 v0, V3 e1, V3 e2, V3 o, V3 d,
                                                   float* u_out, float* w_out) {
-  V3 p = cross(d, e2);
-  float a = dot(e1, p);
-  bool front = a >= kFltEps;
-  float fi = 1.0f / a;
-  V3 s = sub(o, v0);
-  float u = fi * dot(s, p);
-  V3 q = cross(s, e1);
-  float w = fi * dot(d, q);
-  float t = fi * dot(e2, q);
-  bool hit = front && u >= 0.0f && u <= 1.0f && w >= 0.0f && u + w <= 1.0f && t >= 0.0f;
-  *u_out = u;
-  *w_out = w;
-  return (hit && t > 0.0f) ? t : INFINITY;
+  V3 p;
+  const float a = triangle_det(e1, e2, d, &p);
+  float t;
+  return triangle_hit(v0, e1, e2, o, d, p, a >= kFltEps, 1.0f / a, &t, u_out, w_out) ? t
+                                                                                      : INFINITY;
 }
 
 // The same test against face row `fr` (v0 v1 v2 ...), its edges subtracted

@@ -44,8 +44,8 @@ from ..ops.bvh import CLUSTER, FANOUT, MeshBVH
 from ..ops.intersect import _triangle_t
 from ..ops.vec3 import Vec3
 from ..utils.cuda_build import CudaKernel, check
-from .mesh_kernel_v2p import (_check_bvh, _slab_live, mesh_intersect_bvh_v2p,
-                              ray_planes, table_ptr)
+from .mesh_kernel_v2p import (EDGE_COLS, _check_bvh, _slab_live, mesh_intersect_bvh_v2p,
+                              packed_edges, ray_planes, table_ptr)
 
 BIN = FANOUT * CLUSTER          # faces per bin = one super (256)
 C_A = 12                        # slots for every ray
@@ -68,14 +68,38 @@ def _declare_pair(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.aptd_binned_pair.restype = i
     lib.aptd_binned_pair.argtypes = [p] * 7 + [i, p, i, p, p, p]
+    lib.aptd_rcp_fast_mismatches.restype = i
+    lib.aptd_rcp_fast_mismatches.argtypes = [p, p]
 
 
+_HEADERS = ("mesh_common.cuh", "bulk_copy.cuh")
 PHASE1_KERNEL = CudaKernel("mesh_binned_phase1", "mesh_binned_phase1.cu",
                            extra_flags=("-fmad=false",), declare=_declare_phase1,
-                           headers=("mesh_common.cuh",))
+                           headers=_HEADERS)
 PAIR_KERNEL = CudaKernel("mesh_binned_pair", "mesh_binned_pair.cu",
                          extra_flags=("-fmad=false",), declare=_declare_pair,
-                         headers=("mesh_common.cuh",))
+                         headers=_HEADERS)
+
+
+def rcp_fast_mismatches(device) -> int:
+    """How many floats a in [2^-23, 2^126) the pair kernel's fast reciprocal
+    gets other than the IEEE quotient 1.0f / a (every one is tried, on the
+    card); the kernel's bit-for-bit claim needs 0."""
+    out = torch.zeros((1,), dtype=torch.int64, device=device)
+    with torch.cuda.device(device):
+        rc = PAIR_KERNEL.lib().aptd_rcp_fast_mismatches(
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(rc, "reciprocal check kernel")
+    return int(out.item())
+
+
+def _aligned_ptr(table: torch.Tensor, cols: int, device) -> int:
+    """``table_ptr``, and the table must start on a 16-byte boundary: the
+    kernels copy it into shared memory in 16-byte pieces."""
+    ptr = table_ptr(table, cols, device)
+    if ptr % 16:
+        raise ValueError(f"table of {cols} columns at {ptr:#x}: not 16-byte aligned")
+    return ptr
 
 
 # ---------------------------------------------------------------------------
@@ -123,12 +147,15 @@ def _phase1(o: Vec3, d: Vec3, t_cull: torch.Tensor, bounds: torch.Tensor,
         raise ValueError(f"phase 1: kb={kb} of {bounds.shape[0]} rows, "
                          f"skip={skip}, c_out={c_out}")
     planes = ray_planes(o, d, t_cull)
+    bounds_ptr = _aligned_ptr(bounds, 8, dev)
     slots = torch.empty((c_out, n), dtype=torch.int32, device=dev)
     counts = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return slots, counts
     lib = PHASE1_KERNEL.lib()
     with torch.cuda.device(dev):
         rc = lib.aptd_binned_phase1(
-            *(p.data_ptr() for p in planes), n, table_ptr(bounds, 8, dev), kb,
+            *(p.data_ptr() for p in planes), n, bounds_ptr, kb,
             skip, c_out, slots.data_ptr(), counts.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     check(rc, "binned phase-1 kernel")
@@ -179,7 +206,8 @@ def _pair_call(o: Vec3, d: Vec3, key: torch.Tensor, faces_packed: torch.Tensor,
     """Each (o, d, key) pair against the 256 faces of bin ``key``:
     (t (n,) f32, face id (n,) int32), (+inf, -1) on a miss and for keys
     outside [0, kb).  CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel or raise.  The kernel reads the faces from the packed
+    (v0, e1, e2) table derived from ``faces_packed`` once per table."""
     if key.device.type == "cpu":
         return _pair_plain(o, d, key, faces_packed, kb)
     dev = key.device
@@ -188,12 +216,16 @@ def _pair_call(o: Vec3, d: Vec3, key: torch.Tensor, faces_packed: torch.Tensor,
         raise ValueError(f"face table of {faces_packed.shape[0]} rows does "
                          f"not hold {kb} bins")
     planes = ray_planes(o, d, key)
+    table_ptr(faces_packed, 19, dev)
+    edges_ptr = _aligned_ptr(packed_edges(faces_packed), EDGE_COLS, dev)
     t_out = torch.empty((n,), dtype=torch.float32, device=dev)
     f_out = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return t_out, f_out
     lib = PAIR_KERNEL.lib()
     with torch.cuda.device(dev):
         rc = lib.aptd_binned_pair(
-            *(p.data_ptr() for p in planes), n, table_ptr(faces_packed, 19, dev),
+            *(p.data_ptr() for p in planes), n, edges_ptr,
             kb, t_out.data_ptr(), f_out.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     check(rc, "binned pair kernel")
@@ -381,8 +413,10 @@ def pair_work(key: torch.Tensor, kb: int, table_rows: int):
     return 4 * (9 * n + table_rows * 19), live * BIN
 
 
-def phase1_work(n: int, kb: int, c_out: int):
+def phase1_work(t_cull: torch.Tensor, kb: int, c_out: int):
     """(bytes, slab tests) of one subscription call: seven planes in,
-    ``c_out`` slot planes and the counts out, the bounds once; every ray
-    tests every bin."""
-    return 4 * (7 * n + (c_out + 1) * n + kb * 8), n * kb
+    ``c_out`` slot planes and the counts out, the bounds once; every live
+    ray (t_cull above -inf) tests every bin, a dead one none."""
+    n = t_cull.shape[0]
+    live = int((t_cull > -_INF).sum())
+    return 4 * (7 * n + (c_out + 1) * n + kb * 8), live * kb

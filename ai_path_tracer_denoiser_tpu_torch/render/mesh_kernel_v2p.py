@@ -73,10 +73,16 @@ def pack_faces_v0e1e2(faces_packed: torch.Tensor) -> torch.Tensor:
 _EDGES = DerivedCache(8)
 
 
+def packed_edges(faces_packed: torch.Tensor) -> torch.Tensor:
+    """``pack_faces_v0e1e2(faces_packed)`` on the table's device, built once
+    per table (K4 and the binned pair kernel share the entry)."""
+    return _EDGES.get(faces_packed, (), lambda: pack_faces_v0e1e2(faces_packed))
+
+
 def packed_faces(bvh: MeshBVH) -> torch.Tensor:
-    """``pack_faces_v0e1e2(bvh.faces_packed)`` on the table's device, built
-    once per hierarchy."""
-    return _EDGES.get(bvh.faces_packed, (), lambda: pack_faces_v0e1e2(bvh.faces_packed))
+    """The hierarchy's packed (v0, e1, e2) face table, built once per
+    hierarchy."""
+    return packed_edges(bvh.faces_packed)
 
 
 def _slab_entry(rows: torch.Tensor, o: Vec3, inv: Vec3):

@@ -17,9 +17,12 @@ megakernel + conv kernel: 1 and 28 launches per frame) and on the mesh
 scenes cornell_mesh_blob.txt (5,120 faces, per-ray BVH traversal kernel)
 and cornell_mesh_statue.txt (81,920 faces, bin subscription + pair kernels;
 plain wavefront, so no megakernel launch).  The mesh kernels are checked on
-the calls recorded from an actual 800x800 frame of each scene (primary rays
-and the first secondary bounce, with their real cull distances and dead
-lanes), whole and bit for bit.  The mesh-traversal experiment path: the
+the calls recorded from an actual 800x800 frame of each scene (the per-ray
+traversal on the primary rays and the first secondary bounce, bin
+subscription and the pair test on every call of the frame rendered through
+the binned pipeline, with their real cull distances and dead lanes), whole
+and bit for bit, and the pair kernel's fast reciprocal against IEEE division
+on every float it is used for.  The mesh-traversal experiment path: the
 tile-gated and the front-to-back traversal kernels (`--mesh-kernel-impl v2`
 and `v3`) on those same recorded calls against the dense scan and the
 per-ray kernel, on a call with coincident faces in different clusters, and
@@ -1028,7 +1031,12 @@ def main():
                 require(took[side] == 1 and sum(took.values()) == 1,
                         f"binned pipeline on {name}, bounce {bounce}: expected "
                         f"the {side} side, took {took}")
-        for call, args in enumerate(rec["binned"]["phase1"][:4]):
+        # K5 and K6 on every call of the frame rendered through the binned
+        # pipeline.  Each call of bounces 0 and 1 (K5: tiers A and B, K6: one
+        # each) must have a ray live in a bin and a pair that hits; of the
+        # later calls, one.
+        most = {"phase1": 0, "pair": 0}         # largest count, most hits in a later call
+        for call, args in enumerate(rec["binned"]["phase1"]):
             o, d, tc, bounds, kb_, skip, c_out = args
             got = mesh_binned._phase1(*args)
             want, plain_ms = wall_ms(lambda: mesh_binned._phase1_plain(*args))
@@ -1036,12 +1044,16 @@ def main():
             err = max_abs_diff(got, want)
             mesh_err["mesh_binned_phase1"] = max(mesh_err["mesh_binned_phase1"], err)
             emit({"phase": "mesh_phase1_check", "scene": name, "call": call,
-                  "rays": tc.shape[0], "bins": kb_, "skip": skip, "c_out": c_out,
+                  "rays": tc.shape[0], "live_rays": int((tc > float("-inf")).sum()),
+                  "bins": kb_, "skip": skip, "c_out": c_out,
                   "max_count": int(want[1].max()), "bitwise_equal": equal,
                   "max_abs_err": err, "plain_ms": plain_ms,
                   "bar": "slots and counts equal as integers on every ray of the call"})
-            require(equal and int(want[1].max()) > 0, f"phase-1 kernel vs plain on {name}")
-        for call, args in enumerate(rec["binned"]["pair"][:2]):
+            require(equal, f"phase-1 kernel vs plain on {name}, call {call}")
+            require(call >= 4 or int(want[1].max()) > 0,
+                    f"phase-1 call {call} on {name}: no ray live in a bin")
+            most["phase1"] = max(most["phase1"], int(want[1].max()) if call >= 4 else 0)
+        for call, args in enumerate(rec["binned"]["pair"]):
             o, d, key, faces, kb_ = args
             got = mesh_binned._pair_call(*args)
             want, plain_ms = wall_ms(lambda: mesh_binned._pair_plain(*args))
@@ -1053,8 +1065,18 @@ def main():
                   "hits": int((want[1] >= 0).sum()), "bitwise_equal": equal,
                   "max_abs_err": err, "plain_ms": plain_ms,
                   "bar": "t equal bit for bit, face ids equal, on every pair of the call"})
-            require(equal and int((want[1] >= 0).sum()) > 0,
-                    f"pair kernel vs plain on {name}, call {call}")
+            require(equal, f"pair kernel vs plain on {name}, call {call}")
+            hits = int((want[1] >= 0).sum())
+            require(call >= 2 or hits > 0, f"pair call {call} on {name}: no pair hits")
+            most["pair"] = max(most["pair"], hits if call >= 2 else 0)
+        require(most["phase1"] > 0 and most["pair"] > 0,
+                f"{name}: past bounce 1, rays live in bins and pairs that hit ({most})")
+    # the pair kernel's fast reciprocal against IEEE division on every float
+    # in [2^-23, 2^126), the range in which the kernel uses it
+    rcp_bad = mesh_binned.rcp_fast_mismatches(dev)
+    emit({"phase": "mesh_pair_rcp_check", "floats_tried": 0x7e800000 - 0x34000000,
+          "mismatches": rcp_bad, "bar": "0: bit for bit the IEEE quotient"})
+    require(rcp_bad == 0, "pair kernel's fast reciprocal vs IEEE division")
 
     # ---- 8. the mesh paths: interactive 800x800, depth 8, shipped model ----
     box_depth = render_gbuffer_frame(frame0, opts)[1][6].cpu().numpy()
@@ -1099,10 +1121,17 @@ def main():
 
     # ---- 9. mesh kernel timing at the frame's shapes ----
     # Every call of one frame (all bounces) is timed alone; "frame_ms" sums
-    # them.  K4 at the blob's frame (its main path), K5 and K6 at the statue's.
-    # The plain version is timed on the same calls, once each, whole.
+    # them.  K4 at the blob's frame (its main path), K5 and K6 at the
+    # statue's: CUDA events around 5 calls back to back ("ms").  K5 and K6
+    # also as device time ("device_ms": 5 calls captured in a CUDA graph and
+    # replayed), since a call of K5 can take less time on the card than the
+    # wrapper takes on the host.  The plain version is timed on the same
+    # calls, once each, whole.
     def time_calls(fn, calls, reps=5):
         return [time_ms(lambda a=a: fn(*a), reps, warmup=1) for a in calls]
+
+    def device_calls(fn, calls, reps=5):
+        return [graph_ms(lambda a=a: fn(*a), reps) for a in calls]
 
     def plain_calls(fn, calls):
         return [wall_ms(lambda a=a: fn(*a))[1] for a in calls]
@@ -1116,24 +1145,31 @@ def main():
         nb, face_tests, node_tests = mesh_kernel_v2p.traversal_work(bvh_, o, d, tc)
         bound4.append((nb, face_tests * OPS_TRIANGLE + node_tests * OPS_AABB))
     plain4 = plain_calls(plain_v2p, [a[:4] for a in blob_calls])
-    mesh_rows["mesh_bvh_v2p"] = (ms4, bound4, plain4)
+    mesh_rows["mesh_bvh_v2p"] = (ms4, bound4, plain4, {})
     st = recorded["statue"]["binned"]
-    ms5 = time_calls(mesh_binned._phase1, st["phase1"])
     bound5 = []
     for o, d, tc, bounds, kb_, skip, c_out in st["phase1"]:
-        nb, slab_tests = mesh_binned.phase1_work(tc.shape[0], kb_, c_out)
+        nb, slab_tests = mesh_binned.phase1_work(tc, kb_, c_out)
         bound5.append((nb, slab_tests * OPS_AABB))
-    mesh_rows["mesh_binned_phase1"] = (ms5, bound5,
-                                       plain_calls(mesh_binned._phase1_plain, st["phase1"]))
-    ms6 = time_calls(mesh_binned._pair_call, st["pair"])
+    mesh_rows["mesh_binned_phase1"] = (
+        time_calls(mesh_binned._phase1, st["phase1"]), bound5,
+        plain_calls(mesh_binned._phase1_plain, st["phase1"]),
+        {"per_launch_device_ms": device_calls(mesh_binned._phase1, st["phase1"]),
+         "per_launch_rays": [a[2].shape[0] for a in st["phase1"]],
+         "per_launch_live_rays": [int((a[2] > float("-inf")).sum()) for a in st["phase1"]]})
     bound6 = []
     for o, d, key, faces, kb_ in st["pair"]:
         nb, face_tests = mesh_binned.pair_work(key, kb_, faces.shape[0])
         bound6.append((nb, face_tests * OPS_TRIANGLE))
-    mesh_rows["mesh_binned_pair"] = (ms6, bound6,
-                                     plain_calls(mesh_binned._pair_plain, st["pair"]))
+    mesh_rows["mesh_binned_pair"] = (
+        time_calls(mesh_binned._pair_call, st["pair"]), bound6,
+        plain_calls(mesh_binned._pair_plain, st["pair"]),
+        {"per_launch_device_ms": device_calls(mesh_binned._pair_call, st["pair"]),
+         "per_launch_pairs": [a[2].shape[0] for a in st["pair"]],
+         "per_launch_live_pairs": [int(((a[2] >= 0) & (a[2] < a[4])).sum())
+                                   for a in st["pair"]]})
     mesh_summary = {}
-    for kname, (ms_list, work, plain_list) in mesh_rows.items():
+    for kname, (ms_list, work, plain_list, extra) in mesh_rows.items():
         bounds_ms = [bound_ms(nb, ops, FP32_FLOPS) for nb, ops in work]
         t_bytes = sum(nb for nb, _ in work) / HBM_BPS
         t_ops = sum(ops for _, ops in work) / FP32_FLOPS
@@ -1141,10 +1177,15 @@ def main():
             "ms": sum(ms_list), "bound_ms": sum(b for b, _ in bounds_ms),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "plain_ms": sum(plain_list)}
+        if extra:
+            mesh_summary[kname]["device_ms"] = sum(extra["per_launch_device_ms"])
         emit({"phase": "mesh_timing", "kernel": kname, "card": smi,
               "scene": "blob" if kname == "mesh_bvh_v2p" else "statue",
+              "timed_as": "CUDA events around 5 calls" + (
+                  "; device_ms: 5 calls in a CUDA graph" if extra else ""),
               "launches_per_frame": len(ms_list), "per_launch_ms": ms_list,
-              "frame_ms": sum(ms_list),
+              "frame_ms": sum(ms_list), **extra,
+              **({"frame_device_ms": sum(extra["per_launch_device_ms"])} if extra else {}),
               "per_launch_bound_ms": [b for b, _ in bounds_ms],
               "per_launch_bound_by": [by for _, by in bounds_ms],
               "frame_bound_ms": sum(b for b, _ in bounds_ms),

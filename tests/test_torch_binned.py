@@ -21,7 +21,7 @@ import torch
 from ai_path_tracer_denoiser_tpu.render import mesh_binned as jbinned
 from ai_path_tracer_denoiser_tpu_torch.ops import bvh as tbvh
 from ai_path_tracer_denoiser_tpu_torch.render import mesh_binned, mesh_kernel_v2p
-from test_torch_bvh import (RTOL, ATOL, _boundary_rays, assert_same_hits,
+from test_torch_bvh import (RTOL, ATOL, _assert_close, _boundary_rays, assert_same_hits,
                             both_bvhs, cull_distances, jvec, rays, soup, tvec)
 
 torch.set_num_threads(2)
@@ -45,8 +45,29 @@ def assert_equals_scan(tb, o, d, tc, expect=None, **caps):
     return got
 
 
-@pytest.mark.parametrize("skip", [0, 6])
-def test_phase1_equals_jax_kernel(skip):
+def _zero_and_subnormal_directions(o, d):
+    """Direction components that are -0 (1/d = -inf) or subnormal below
+    2**-128, whose inverse overflows to +-inf.  XLA:CPU flushes subnormal
+    operands to zero, so the JAX side takes 1/+-0 = +-inf there: the two
+    agree.  Above 2**-128 the port's inverse (IEEE, on the CPU and on the
+    card) is finite where the flushed one is infinite (ROADMAP C); the card
+    tests hold the kernel to its plain version there."""
+    d[0, 1::6] = -0.0
+    d[1, 2::7] = np.float32(1e-40)
+    d[2, ::9] = np.float32(-1.5e-39)
+    sub = (np.abs(d) < np.finfo(np.float32).tiny) & (d != 0)
+    assert sub.sum() > 1000 and (np.abs(d[sub]) < 2.0 ** -128).all()
+    return o, d
+
+
+@pytest.mark.parametrize("skip,rays_kind", [
+    (0, "boundary"), (6, "boundary"), (0, "zero_subnormal"), (6, "zero_subnormal"),
+    (0, "dead_tail"), (6, "dead_tail")],
+    ids=["0", "6", "zero_subnormal-0", "zero_subnormal-6", "dead_tail-0", "dead_tail-6"])
+def test_phase1_equals_jax_kernel(skip, rays_kind):
+    """Boundary rays (0 * inf slabs); with -0 and subnormal direction
+    components as well; and a packed prefix whose last 1,500 rays are dead
+    (t_cull = -inf), as the pipeline hands them over."""
     jb, tb = both_bvhs(4096, seed=3)
     kb = jb.n_supers_real
     assert kb == 16
@@ -54,6 +75,10 @@ def test_phase1_equals_jax_kernel(skip):
     o, d = _boundary_rays(jb.super_bounds, n, seed=8)
     tc = cull_distances(n, seed=9, dead_every=7)
     tc[3::11] = np.inf
+    if rays_kind == "zero_subnormal":
+        o, d = _zero_and_subnormal_directions(o, d)
+    elif rays_kind == "dead_tail":
+        tc[n - 1500:] = -np.inf
     c_out = 6
     js, jc = jbinned._phase1(jvec(o), jvec(d), jnp.asarray(tc), jb.super_bounds,
                              kb, skip, c_out, interpret=True)
@@ -66,6 +91,8 @@ def test_phase1_equals_jax_kernel(skip):
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     assert int(tcn.max()) > skip + c_out         # some rays overflow the slots
     assert (ts.numpy() == mesh_binned._DEADKEY).any()
+    if rays_kind == "dead_tail":
+        assert not tcn.numpy()[n - 1500:].any()
 
 
 def _jax_pair_call(jb, o, d, key, kb):
@@ -118,6 +145,64 @@ def test_pair_call_equals_jax_kernel():
     assert hit.sum() > 50 and not np.isfinite(t_t.numpy()[~hit]).any()
     assert (f_t.numpy()[hit] // mesh_binned.BIN == key.numpy()[hit]).all()
     np.testing.assert_allclose(t_t.numpy()[hit], t_j[hit], rtol=RTOL, atol=ATOL)
+
+
+def _pair_table(tb, layout, seed):
+    """A bin-sorted pair table for the pair kernel's block layouts (its
+    blocks hold 128 or 256 pairs): each pair's ray aims at a face of its
+    bin from outside the soup, so most pairs hit.
+
+    ``straddle``: runs of 1-60 pairs, so one block holds several bins;
+    ``gaps``: only every third bin has pairs; ``single``: every bin one pair,
+    between runs of other bins; ``dead_tail``: 300 real pairs, then 77 of the
+    dead key (the tail starts inside a block)."""
+    rng = np.random.default_rng(seed)
+    kb = tb.n_supers_real
+    if layout == "straddle":
+        keys = np.repeat(np.arange(kb), rng.integers(1, 61, kb))
+    elif layout == "gaps":
+        keys = np.repeat(np.arange(0, kb, 3), rng.integers(20, 90, len(range(0, kb, 3))))
+    elif layout == "single":
+        runs = np.where(np.arange(kb) % 2 == 0, 1, rng.integers(30, 70, kb))
+        keys = np.repeat(np.arange(kb), runs)
+    else:
+        keys = np.sort(rng.integers(0, kb, 300))
+    n = keys.shape[0]
+    faces = tb.faces_packed[:, :9].numpy().reshape(-1, 3, 3)
+    target = np.einsum("nc,ncx->xn", rng.dirichlet(np.ones(3), n),
+                       faces[keys * mesh_binned.BIN + rng.integers(0, mesh_binned.BIN, n)])
+    u = rng.normal(size=(3, n))
+    o = (target + 9.0 * u / np.linalg.norm(u, axis=0)).astype(np.float32)
+    d = target - o
+    d = (d / np.linalg.norm(d, axis=0)).astype(np.float32)
+    if layout == "dead_tail":
+        keys = np.concatenate([keys, np.full(77, mesh_binned._DEADKEY)])
+        o = np.concatenate([o, o[:, :77]], axis=1)
+        d = np.concatenate([d, d[:, :77]], axis=1)
+    return o, d, keys.astype(np.int32)
+
+
+@pytest.mark.parametrize("layout", ["straddle", "gaps", "single", "dead_tail"])
+def test_pair_call_equals_jax_kernel_on_block_layouts(layout):
+    jb, tb = both_bvhs(4096, seed=5)
+    kb = tb.n_supers_real
+    o, d, key = _pair_table(tb, layout, seed=11)
+    launches = mesh_binned.PAIR_KERNEL.launches
+    t_t, f_t = mesh_binned._pair_call(tvec(o), tvec(d), torch.from_numpy(key),
+                                      tb.faces_packed, kb)
+    assert mesh_binned.PAIR_KERNEL.launches == launches
+    t_j, f_j = _jax_pair_call(jb, list(o), list(d), key, kb)
+    np.testing.assert_array_equal(f_t.numpy(), f_j)
+    hit = f_j >= 0
+    real = key < kb
+    assert hit.sum() > real.sum() // 2 and not hit[~real].any()
+    assert not np.isfinite(t_t.numpy()[~hit]).any()
+    assert (f_t.numpy()[hit] // mesh_binned.BIN == key[hit]).all()
+    # Rays that aim at a face from any side include a few grazing hits (1/a
+    # large), where XLA:CPU and PyTorch differ in the last bits of t by up
+    # to 2e-5 relative: the bar of test_binned_matches_jax_binned, 0.5% of
+    # the hits may miss it and then stay within 1e-4.
+    _assert_close(t_t.numpy()[hit], t_j[hit], RTOL, ATOL, outliers=0.005)
 
 
 @pytest.mark.parametrize("with_cull", [False, True])
@@ -191,4 +276,6 @@ def test_default_caps_and_work_counts():
     assert mesh_binned.default_caps(100) == (1024, 1024)
     key = torch.tensor([0, 0, 3, mesh_binned._DEADKEY], dtype=torch.int32)
     assert mesh_binned.pair_work(key, 4, 1024) == (4 * (36 + 1024 * 19), 3 * 256)
-    assert mesh_binned.phase1_work(1000, 20, 12) == (4 * (20000 + 160), 20000)
+    t_cull = torch.full((1000,), 5.0)
+    t_cull[::4] = float("-inf")                   # dead rays need no slab test
+    assert mesh_binned.phase1_work(t_cull, 20, 12) == (4 * (20000 + 160), 750 * 20)

@@ -363,6 +363,192 @@ def test_mesh_kernels_match_plain_on_card(cuda_device, n_faces):
         assert _all_equal(mesh_binned.mesh_intersect_binned(bvh, o, d, tc, **caps), want)
 
 
+def _bin_faces(n_bins, seed, tie_every=0):
+    """A pair kernel's face table of ``n_bins`` bins (19 columns; only the
+    vertices matter): each bin a cluster of 256 small triangles.  With
+    ``tie_every`` (a divisor of 256), face r + 1 of a bin repeats face r for
+    every r = 0 mod tie_every, so hits on it tie and the lower face must
+    win."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-3, 3, (n_bins, 1, 1, 3))
+    v = centers + rng.uniform(-0.6, 0.6, (n_bins, 256, 3, 3))
+    if tie_every:
+        v[:, 1::tie_every] = v[:, 0::tie_every]
+    rows = np.zeros((n_bins * 256, 19), np.float32)
+    rows[:, :9] = v.reshape(-1, 9)
+    rows[:, 18] = rng.integers(0, 5, len(rows))
+    return rows
+
+
+def _pairs_aimed(rows, keys, seed, device):
+    """Pair planes: each pair's ray aims, from outside, at a face of its bin
+    (dead keys at any face)."""
+    rng = np.random.default_rng(seed)
+    n = len(keys)
+    bins = np.where(keys < len(rows) // 256, keys, 0)
+    faces = rows[:, :9].reshape(-1, 3, 3)
+    target = np.einsum("nc,ncx->xn", rng.dirichlet(np.ones(3), n),
+                       faces[bins * 256 + rng.integers(0, 256, n)])
+    u = rng.normal(size=(3, n))
+    o = (target + 8.0 * u / np.linalg.norm(u, axis=0)).astype(np.float32)
+    d = target - o
+    d = (d / np.linalg.norm(d, axis=0)).astype(np.float32)
+    vec = lambda a: Vec3(*(torch.from_numpy(np.ascontiguousarray(c)).to(device) for c in a))
+    return vec(o), vec(d), torch.from_numpy(keys.astype(np.int32)).to(device)
+
+
+def _k6_equals_plain(o, d, key, faces, kb):
+    launches = mesh_binned.PAIR_KERNEL.launches
+    got = mesh_binned._pair_call(o, d, key, faces, kb)
+    torch.cuda.synchronize()
+    assert mesh_binned.PAIR_KERNEL.launches == launches + (key.shape[0] > 0)
+    want = mesh_binned._pair_plain(o, d, key, faces, kb)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["straddle", "ties", "ragged", "unsorted", "n0", "n1"])
+def test_k6_pair_layouts_match_plain_on_card(cuda_device, layout):
+    # blocks own 128 or 256 consecutive pairs: runs of 1-200 pairs put
+    # several bins in one block, some bins get none, a dead-key tail starts
+    # inside a block; "ties" repeats every fourth face; "ragged" ends a
+    # pair count off any block size; "unsorted" shuffles the keys
+    rng = np.random.default_rng(21)
+    kb = 24
+    rows = _bin_faces(kb + 1, 22, tie_every=4 if layout == "ties" else 0)
+    runs = rng.integers(1, 201, kb) * (rng.uniform(size=kb) > 0.2)
+    keys = np.concatenate([np.repeat(np.arange(kb), runs),
+                           np.full(1000 + 77, mesh_binned._DEADKEY), [kb, -3]])
+    if layout == "ragged":
+        keys = keys[:5 * 256 + 37]
+    elif layout == "unsorted":
+        keys = rng.permutation(keys)
+    elif layout in ("n0", "n1"):
+        keys = keys[:int(layout[1])]
+    o, d, key = _pairs_aimed(rows, keys, 23, cuda_device)
+    faces = torch.from_numpy(rows).to(cuda_device)
+    t, f = _k6_equals_plain(o, d, key, faces, kb)
+    real = (key >= 0) & (key < kb)
+    assert not (f[~real] >= 0).any()
+    if layout not in ("n0", "n1"):
+        assert int((f >= 0).sum()) > int(real.sum()) // 2
+    if layout == "ties":
+        won = f[f >= 0].cpu().numpy() % 4
+        assert (won == 0).sum() > 0 and not (won == 1).any()
+
+
+@pytest.mark.cuda
+def test_k6_fast_reciprocal_is_ieee_on_card(cuda_device):
+    # every float in [2^-23, 2^126): the kernel's reciprocal equals 1.0f / a
+    assert mesh_binned.rcp_fast_mismatches(cuda_device) == 0
+
+
+@pytest.mark.cuda
+def test_k6_redoes_pairs_with_huge_determinants_on_card(cuda_device):
+    # faces scaled by 1e19 to 1e20 about their first corner: a front face's
+    # a = e1 . (d x e2) reaches 2^126 or overflows, where the fast
+    # reciprocal does not apply and the pair is tested again
+    kb = 4
+    rows = _bin_faces(kb, 41)
+    v = rows[:, :9].reshape(-1, 3, 3)
+    big = np.arange(len(v)) % 5 == 2
+    scale = np.array([1e19, 4e19, 1e20], np.float32)[np.arange(big.sum()) % 3]
+    v[big] = v[big, :1] + scale[:, None, None] * (v[big] - v[big, :1])
+    rows[:, :9] = v.reshape(-1, 9)
+    keys = np.repeat(np.arange(kb), 300)
+    o, d, key = _pairs_aimed(rows, keys, 42, cuda_device)
+    faces = torch.from_numpy(rows).to(cuda_device)
+    t, f = _k6_equals_plain(o, d, key, faces, kb)
+    assert int((f >= 0).sum()) > 100
+
+
+@pytest.mark.cuda
+def test_k6_calls_on_two_streams_match_plain_on_card(cuda_device):
+    kb = 16
+    rows = _bin_faces(kb, 31)
+    faces = torch.from_numpy(rows).to(cuda_device)
+    rng = np.random.default_rng(32)
+    tables = [_pairs_aimed(rows, np.sort(rng.integers(0, kb, m)), seed, cuda_device)
+              for m, seed in ((20000, 33), (9000, 34))]
+    want = [mesh_binned._pair_plain(*tb, faces, kb) for tb in tables]
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    for _ in range(3):
+        got_main = mesh_binned._pair_call(*tables[0], faces, kb)
+        with torch.cuda.stream(side):
+            got_side = mesh_binned._pair_call(*tables[1], faces, kb)
+        torch.cuda.synchronize(cuda_device)
+        for got, ref in ((got_main, want[0]), (got_side, want[1])):
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def _k5_rays(n, seed, device):
+    """Rays for K5 in warps of 32: whole warps dead (t_cull = -inf), warps
+    that mix finite and infinite inverse direction components (+0, -0 and
+    subnormal below 2**-128), subnormal components with a finite huge
+    inverse (near 2**-126), origins on box planes, NaN cull distances."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-6, 6, (3, n)).astype(np.float32)
+    d = rng.normal(size=(3, n)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    d[0, 5::37] = 0.0
+    d[1, 6::41] = -0.0
+    d[2, 7::43] = np.float32(1e-40)
+    d[0, 8::47] = np.float32(-1.1e-38)
+    o[0, 5::37] = 1.0
+    tc = rng.uniform(0.5, 25.0, n).astype(np.float32)
+    tc[3::11] = np.inf
+    tc[9::53] = np.nan
+    warp = np.arange(n) // 32
+    tc[warp % 5 == 2] = -np.inf                   # all-dead warps
+    tc[(warp % 5 == 4) & (np.arange(n) % 3 == 0)] = -np.inf
+    vec = lambda a: Vec3(*(torch.from_numpy(np.ascontiguousarray(c)).to(device) for c in a))
+    return vec(o), vec(d), torch.from_numpy(tc).to(device)
+
+
+def _synthetic_bounds(kb, seed, device):
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-5, 5, (kb, 3))
+    h = rng.uniform(0.1, 1.5, (kb, 3))
+    rows = np.zeros((kb, 8), np.float32)
+    rows[:, 0:3], rows[:, 3:6] = c - h, c + h
+    rows[::7, 0] = 1.0                            # box planes through origins
+    return torch.from_numpy(rows).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kb,skip,c_out", [(1100, 0, 20), (1100, 7, 1), (320, 12, 20),
+                                           (40, 3, 1)])
+def test_k5_synthetic_bounds_match_plain_on_card(cuda_device, kb, skip, c_out):
+    # kb = 1100 needs two staging chunks of 1024 rows
+    bounds = _synthetic_bounds(kb, kb + skip, cuda_device)
+    o, d, tc = _k5_rays(8192 + 45, 5, cuda_device)
+    launches = mesh_binned.PHASE1_KERNEL.launches
+    slots, counts = mesh_binned._phase1(o, d, tc, bounds, kb, skip, c_out)
+    torch.cuda.synchronize()
+    assert mesh_binned.PHASE1_KERNEL.launches == launches + 1
+    p_slots, p_counts = mesh_binned._phase1_plain(o, d, tc, bounds, kb, skip, c_out)
+    assert torch.equal(slots, p_slots) and torch.equal(counts, p_counts)
+    assert int(counts.max()) > skip and (slots != mesh_binned._DEADKEY).any()
+    assert not counts[~(tc > float("-inf"))].any()
+    # a row with a NaN bound: the chunk leaves the NaN-free branch, same result
+    bounds[kb // 2, 1] = float("nan")
+    slots, counts = mesh_binned._phase1(o, d, tc, bounds, kb, skip, c_out)
+    p_slots, p_counts = mesh_binned._phase1_plain(o, d, tc, bounds, kb, skip, c_out)
+    assert torch.equal(slots, p_slots) and torch.equal(counts, p_counts)
+
+
+@pytest.mark.cuda
+def test_k5_and_k6_skip_empty_calls_on_card(cuda_device):
+    bounds = _synthetic_bounds(40, 1, cuda_device)
+    o, d, tc = _k5_rays(0, 2, cuda_device)
+    launches = mesh_binned.PHASE1_KERNEL.launches
+    slots, counts = mesh_binned._phase1(o, d, tc, bounds, 40, 0, 12)
+    assert slots.shape == (12, 0) and counts.shape == (0,)
+    assert mesh_binned.PHASE1_KERNEL.launches == launches
+
+
 def _warp_rays(faces, n_warps, live, seed, device):
     """Warps of 32 rays.  In each warp the first ``live`` lanes aim, from
     nearby origins outside the soup, at points inside the faces of one
