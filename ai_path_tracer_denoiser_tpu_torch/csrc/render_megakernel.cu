@@ -1,34 +1,63 @@
-// Whole-render megakernel: N 1-spp path-trace iterations in one launch.
+// Whole-render megakernel K1: N 1-spp path-trace iterations in one launch.
 //
-// Replaces the TPU kernel render/pallas_backend.py:_build_kernel (`kernel`
-// and `kernel_operand`, launched by render_pallas through _compiled_call) of
-// the JAX package.  Same contract: per pixel, `niter` iterations of
-// anti-aliased ray generation from the parity RNG, up to `depth` bounces of
-// analytic-geom + small-mesh intersection and scatterRay shading, RGB summed
-// into `acc`, and the depth-0 normal/depth/albedo G-buffer written on
-// iteration 1.  The arithmetic follows the plain PyTorch version
-// (render/wavefront.py, ops/intersect.py, ops/bsdf.py, ops/rng.py of this
-// package) operation by operation.
+// Replaces the TPU kernel of the JAX package's render/pallas_backend.py:
+// the pallas_call in _compiled_call (:588) of the body _build_kernel (:298)
+// (`kernel` and `kernel_operand`, launched by render_pallas).  Same
+// contract: per pixel, `niter` iterations of anti-aliased ray generation
+// from the parity RNG, up to `depth` bounces of analytic-geom + small-mesh
+// intersection and scatterRay shading, RGB summed into `acc`, and the
+// depth-0 normal/depth/albedo G-buffer written on iteration 1.  The
+// arithmetic follows the plain PyTorch version (render/wavefront.py,
+// ops/intersect.py, ops/bsdf.py, ops/rng.py of this package) operation by
+// operation.
 //
-// Design.  One thread per pixel; the iteration and bounce loops run inside
-// the thread, so the path state never leaves registers and device memory
-// sees one read and one write of the 10 accumulator/G-buffer planes per
-// launch.  A thread whose path has ended leaves the bounce loop (the TPU
-// kernel had to carry dead lanes to the end; the result is the same).  The
-// pixel id splits into (x, y) with integer division, which gives the exact
-// (x, y) that the TPU kernel's float-reciprocal split plus fix-up gives.
-// The scene (geom transforms, material table, mesh of at most 64 faces and
-// its box) arrives as one packed device buffer that each block copies into
-// shared memory; the geom type is a run-time branch, so one compiled kernel
-// serves every scene (the TPU's "baked" and "operand" modes are the same
-// kernel here).
+// What bounds it on the H100: float32 issue (about a thousand operations
+// per ray segment, most of them the geom tests, which every lane runs
+// alike); the bytes moved are 80 per pixel per launch.  The first version
+// ran one pixel per thread with the iteration and bounce loops nested in
+// the thread, so every warp ran, iteration by iteration, as long as its
+// longest path: 58% of its lane-steps traced a segment on the cornell
+// frame, 55% at 512x512 x 64 iterations (tools/k1_sweep.py).  And every
+// geom test transformed and normalised its world normal, of which all but
+// the winner's were thrown away.
 //
-// Bound on the H100: FP32 ALU work (a few hundred flops per geom test per
-// bounce, no reuse of memory); the bytes moved are 80 per pixel per launch.
-// The simple design keeps everything in registers and shared memory; it
-// does nothing about warp divergence between paths of different length,
-// which is what a faster version would attack (path regeneration or
-// wavefront compaction).
+// Design.
+// * Persistent warps with path regeneration.  About (SMs x resident blocks)
+//   blocks are launched.  A warp takes `chunk` pixel ids at a time from a
+//   global counter (a one-int scratch the wrapper zeroes) and hands them to
+//   its lanes that have none, by ballot and popcount.  The loop is flat: one
+//   step traces one segment for every lane that has a live path.  A lane
+//   whose path ends adds its colour to its pixel's sums (in the same order
+//   as before), starts the pixel's next iteration from a new camera ray,
+//   and after `niter` iterations writes the pixel's 10 planes once and takes
+//   the next pixel.  Pixels stay in order within a lane; each pixel's own
+//   sequence of operations is the first version's, so are its bits.
+// * The world normal of the winning geom only.  The geom loop keeps t, the
+//   world point (t is |o - point|) and what the winner's normal needs: the
+//   object-space normal of a box, the object-space point and root signs of
+//   a sphere.  The transform and normalisation run once per segment after
+//   the loop, on the same operands, so the normal has the same bits.
+// * NaN-propagating min/max as Hopper's min.NaN / max.NaN, one instruction
+//   each (a box test makes ten).  With the normal, a box test falls from
+//   298 to 269 SASS instructions, a sphere test from 199 to 180.
+// * The scene (geom transforms, material table, mesh of at most 64 faces and
+//   its box) arrives as one packed device buffer that each persistent block
+//   copies into shared memory once; the geom type is a run-time branch
+//   (uniform across a warp), so one compiled kernel serves every scene.
+// * The pixel id splits into (x, y) with integer division, which gives the
+//   exact (x, y) of the TPU kernel's float-reciprocal split plus fix-up.
+//
+// What is left: lanes still idle at the end of the launch (each warp waits
+// for its last paths once the counter is spent: 87% of lane-steps trace a
+// segment on the cornell frame, 89% at 512x512 x 64 iterations), and a
+// step now runs the union of several lanes' code (ray generation, pixels
+// taken and written, shading of paths at different depths).
+//
+// Built with -DK1_ONE_PIXEL_PER_THREAD the same source is the first
+// version's schedule and arithmetic: one pixel per thread, nested loops,
+// every geom's world normal, min/max by compare and select.  That build is
+// the witness the shipped kernel is held to bit for bit (chip_smoke.py,
+// tests/test_torch_cuda.py).
 //
 // Floating point: built with -fmad=false (see render/cuda_backend.py), so
 // no multiply-add is contracted and every operation rounds as the separate
@@ -97,12 +126,28 @@ __device__ __forceinline__ V3 normalized_safe(V3 a) {
 __device__ __forceinline__ V3 vabs(V3 a) { return v3(fabsf(a.x), fabsf(a.y), fabsf(a.z)); }
 __device__ __forceinline__ V3 reflect(V3 i, V3 n) { return sub(i, scale(n, 2.0f * dot(n, i))); }
 
-// NaN-propagating min/max (torch.minimum/maximum semantics).
+// NaN-propagating min/max (torch.minimum/maximum semantics).  Hopper's
+// min.NaN / max.NaN do it in one instruction; the witness keeps the first
+// version's compare-and-select.  Either way a NaN operand gives a NaN and
+// other operands the IEEE min/max; only the NaN's payload may differ, and a
+// NaN here never reaches an output (it only fails the hit comparisons).
 __device__ __forceinline__ float jmin(float a, float b) {
+#ifdef K1_ONE_PIXEL_PER_THREAD
   return (a != a || b != b) ? a + b : fminf(a, b);
+#else
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#endif
 }
 __device__ __forceinline__ float jmax(float a, float b) {
+#ifdef K1_ONE_PIXEL_PER_THREAD
   return (a != a || b != b) ? a + b : fmaxf(a, b);
+#else
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#endif
 }
 
 __device__ __forceinline__ V3 xform_point(const float* m, V3 p) {
@@ -150,8 +195,10 @@ __device__ __forceinline__ void draw2(uint32_t iter, uint32_t index, uint32_t de
 }
 
 // ------------------------------------------------------- intersection --
-// Unit cube slab test (ops/intersect.py:box_intersect_v).
-__device__ float box_test(const float* M, const float* inv, V3 o, V3 d, V3* point, V3* normal) {
+// Unit cube slab test (ops/intersect.py:box_intersect_v): t, the world
+// point and the object-space normal.
+__device__ __forceinline__ float box_test(const float* M, const float* inv, V3 o, V3 d,
+                                          V3* point, V3* n_obj) {
   V3 qo = xform_point(inv, o);
   V3 qd = normalized(xform_dir(inv, d));
   float qos[3] = {qo.x, qo.y, qo.z};
@@ -177,17 +224,17 @@ __device__ float box_test(const float* M, const float* inv, V3 o, V3 d, V3* poin
   bool hit = (tmax >= tmin) && (tmax > 0.0f);
   bool inside = tmin <= 0.0f;
   float t_obj = inside ? tmax : tmin;
-  V3 n_obj = inside ? v3(b0 ? sg[0] : 0.0f, b1 ? sg[1] : 0.0f, b2 ? sg[2] : 0.0f)
-                    : v3(a0 ? sg[0] : 0.0f, a1 ? sg[1] : 0.0f, a2 ? sg[2] : 0.0f);
+  *n_obj = inside ? v3(b0 ? sg[0] : 0.0f, b1 ? sg[1] : 0.0f, b2 ? sg[2] : 0.0f)
+                  : v3(a0 ? sg[0] : 0.0f, a1 ? sg[1] : 0.0f, a2 ? sg[2] : 0.0f);
   V3 obj_point = add(qo, scale(qd, t_obj - kEpsPoint));
   *point = xform_point(M, obj_point);
-  *normal = normalized(xform_dir(M, n_obj));
   return hit ? norm(sub(o, *point)) : -1.0f;
 }
 
-// Radius-0.5 sphere (ops/intersect.py:sphere_intersect_v).
-__device__ float sphere_test(const float* M, const float* inv, const float* invt, V3 o, V3 d,
-                             V3* point, V3* normal) {
+// Radius-0.5 sphere (ops/intersect.py:sphere_intersect_v): t, the world
+// point, the object-space point and whether both roots are positive.
+__device__ __forceinline__ float sphere_test(const float* M, const float* inv, V3 o, V3 d,
+                                             V3* point, V3* obj_point, bool* both_pos) {
   V3 ro = xform_point(inv, o);
   V3 rd = normalized(xform_dir(inv, d));
   float v_dot_d = dot(ro, rd);
@@ -196,14 +243,21 @@ __device__ float sphere_test(const float* M, const float* inv, const float* invt
   float t1 = -v_dot_d + sq;
   float t2 = -v_dot_d - sq;
   bool both_neg = (t1 < 0.0f) && (t2 < 0.0f);
-  bool both_pos = (t1 > 0.0f) && (t2 > 0.0f);
-  float t_obj = both_pos ? jmin(t1, t2) : jmax(t1, t2);
+  *both_pos = (t1 > 0.0f) && (t2 > 0.0f);
+  float t_obj = *both_pos ? jmin(t1, t2) : jmax(t1, t2);
   bool hit = (radicand >= 0.0f) && !both_neg;
-  V3 obj_point = add(ro, scale(rd, t_obj - kEpsPoint));
-  *point = xform_point(M, obj_point);
-  V3 n = normalized(xform_dir(invt, obj_point));
-  *normal = both_pos ? n : neg(n);
+  *obj_point = add(ro, scale(rd, t_obj - kEpsPoint));
+  *point = xform_point(M, *obj_point);
   return hit ? norm(sub(o, *point)) : -1.0f;
+}
+
+// World-space normal of a geom hit from what its test kept: a box's
+// object-space normal through the transform, a sphere's object-space point
+// through the inverse transpose, flipped where the ray starts inside.
+__device__ __forceinline__ V3 geom_normal(const float* row, bool cube, V3 q, bool both_pos) {
+  if (cube) return normalized(xform_dir(row, q));
+  V3 n = normalized(xform_dir(row + 32, q));
+  return both_pos ? n : neg(n);
 }
 
 // Slab AABB gate (ops/intersect.py:ray_aabb_intersect_v).
@@ -238,19 +292,34 @@ __device__ Hit intersect(const float* geo, const int* gtype, const int* gmat, in
   h.point = v3(0.0f, 0.0f, 0.0f);
   h.normal = v3(0.0f, 0.0f, 0.0f);
   h.mat = -1;
+  int win = -1;                      // the winning geom, and what its normal needs
+  V3 win_q = v3(0.0f, 0.0f, 0.0f);
+  bool win_pos = false;
+#pragma unroll 1
   for (int g = 0; g < n_geoms; ++g) {
     const float* row = geo + g * kGeomRow;
-    V3 p, n;
-    float t = gtype[g] == kCube ? box_test(row, row + 16, o, d, &p, &n)
-                                : sphere_test(row, row + 16, row + 32, o, d, &p, &n);
+    V3 p, q;
+    bool pos = false;
+    float t = gtype[g] == kCube ? box_test(row, row + 16, o, d, &p, &q)
+                                : sphere_test(row, row + 16, o, d, &p, &q, &pos);
     t = t > 0.0f ? t : INFINITY;
+#ifdef K1_ONE_PIXEL_PER_THREAD
+    V3 n = geom_normal(row, gtype[g] == kCube, q, pos);   // every geom's, as the first version
+#endif
     if (t < h.t) {
       h.t = t;
       h.point = p;
-      h.normal = n;
       h.mat = gmat[g];
+#ifdef K1_ONE_PIXEL_PER_THREAD
+      h.normal = n;
+#else
+      win = g;
+      win_q = q;
+      win_pos = pos;
+#endif
     }
   }
+  if (win >= 0) h.normal = geom_normal(geo + win * kGeomRow, gtype[win] == kCube, win_q, win_pos);
   if (n_faces > 0 && (!culling || aabb_test(o, d, box, box + 3))) {
     for (int f = 0; f < n_faces; ++f) {
       const float* fr = faces + f * kFaceRow;
@@ -409,138 +478,313 @@ __device__ void scatter(V3 ray_dir, V3 point, V3 normal, const float* m, float u
   *new_origin = add(point, scale(dir, 0.01f));
 }
 
-__global__ void __launch_bounds__(128)
-render_kernel(const float* __restrict__ scene_f, const int* __restrict__ scene_i, int n_geoms,
-              int n_mats, int n_faces, Cam cam, int width, int height, int n, int pixel_offset,
-              int start, int niter, int rng_offset, int depth, int flags,
-              float* __restrict__ acc, float* __restrict__ gbuf) {
-  extern __shared__ float smem[];
-  const int n_f = n_geoms * kGeomRow + n_mats * kMatRow + n_faces * kFaceRow + 6;
-  const int n_i = 2 * n_geoms + n_faces;
+// ------------------------------------------------------------- kernel --
+struct Args {
+  const float* scene_f;
+  const int* scene_i;
+  int n_geoms, n_mats, n_faces;
+  Cam cam;
+  int width, height, n, pixel_offset, start, niter, rng_offset, depth, flags;
+  float* acc;                  // (3, n) running sums
+  float* gbuf;                 // (7, n) G-buffer
+  int* counter;                // next unclaimed pixel id (zeroed by the wrapper)
+  int chunk;                   // pixel ids a warp claims at a time
+  unsigned long long* stats;   // null, or {32 x warp steps, segments traced}
+};
+
+__host__ __device__ __forceinline__ size_t scene_smem_bytes(int n_geoms, int n_mats,
+                                                            int n_faces) {
+  return sizeof(float) * (n_geoms * kGeomRow + n_mats * kMatRow + n_faces * kFaceRow + 6) +
+         sizeof(int) * (2 * n_geoms + n_faces);
+}
+
+struct SceneView {
+  const float *geo, *mats, *faces, *box;
+  const int *gtype, *gmat, *fmat;
+};
+
+// The block's copy of the packed scene in shared memory.
+__device__ __forceinline__ SceneView stage_scene(const Args& a, float* smem) {
+  const int n_f = a.n_geoms * kGeomRow + a.n_mats * kMatRow + a.n_faces * kFaceRow + 6;
+  const int n_i = 2 * a.n_geoms + a.n_faces;
   int* smem_i = reinterpret_cast<int*>(smem + n_f);
-  for (int k = threadIdx.x; k < n_f; k += blockDim.x) smem[k] = scene_f[k];
-  for (int k = threadIdx.x; k < n_i; k += blockDim.x) smem_i[k] = scene_i[k];
+  for (int k = threadIdx.x; k < n_f; k += blockDim.x) smem[k] = a.scene_f[k];
+  for (int k = threadIdx.x; k < n_i; k += blockDim.x) smem_i[k] = a.scene_i[k];
   __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  SceneView s;
+  s.geo = smem;
+  s.mats = s.geo + a.n_geoms * kGeomRow;
+  s.faces = s.mats + a.n_mats * kMatRow;
+  s.box = s.faces + a.n_faces * kFaceRow;
+  s.gtype = smem_i;
+  s.gmat = s.gtype + a.n_geoms;
+  s.fmat = s.gmat + a.n_geoms;
+  return s;
+}
 
-  const float* geo = smem;
-  const float* mats = geo + n_geoms * kGeomRow;
-  const float* faces = mats + n_mats * kMatRow;
-  const float* box = faces + n_faces * kFaceRow;
-  const int* gtype = smem_i;
-  const int* gmat = gtype + n_geoms;
-  const int* fmat = gmat + n_geoms;
+struct Path {
+  V3 o, d, color;
+  int remaining;      // bounces left; the path has ended at 0
+  int iteration;      // the true iteration (accumulation, G-buffer gate)
+  uint32_t riter;     // the iteration the RNG draws from
+};
 
-  const bool fast = flags & kRngFast;
-  const bool culling = flags & kRayCulling;
-  const int pid_i = pixel_offset + i;
-  const uint32_t pid = (uint32_t)pid_i;
-  const float xf = (float)(pid_i % width);
-  const float yf = (float)(pid_i / width);
-  const float half_w = (float)(width * 0.5);
-  const float half_h = (float)(height * 0.5);
+// Iteration k's camera ray for pixel `pid` at (xf, yf).
+__device__ __forceinline__ Path start_path(const Args& a, uint32_t pid, float xf, float yf,
+                                           int k) {
+  Path p;
+  p.iteration = a.start + 1 + k;
+  // RNG draws from iteration + rng_offset; the accumulation and the
+  // iteration-1 G-buffer gate use the true iteration.
+  p.riter = (uint32_t)(p.iteration + a.rng_offset);
+  float jx = 0.0f, jy = 0.0f;
+  if (a.flags & kAntialias) {
+    draw2(p.riter, pid, 0u, a.flags & kRngFast, &jx, &jy);
+    jx = jx - 0.5f;
+    jy = jy - 0.5f;
+  }
+  const float half_w = (float)(a.width * 0.5);
+  const float half_h = (float)(a.height * 0.5);
+  const Cam& cam = a.cam;
+  const float px = cam.pl[0] * (xf - half_w + jx);
+  const float py = cam.pl[1] * (yf - half_h + jy);
+  p.d = normalized(v3(cam.view[0] - cam.right[0] * px - cam.up[0] * py,
+                      cam.view[1] - cam.right[1] * px - cam.up[1] * py,
+                      cam.view[2] - cam.right[2] * px - cam.up[2] * py));
+  p.o = v3(cam.pos[0], cam.pos[1], cam.pos[2]);
+  p.color = v3(1.0f, 1.0f, 1.0f);
+  p.remaining = a.depth;
+  return p;
+}
 
-  float a0 = acc[i], a1 = acc[n + i], a2 = acc[2 * n + i];
-  float g[7];
-#pragma unroll
-  for (int c = 0; c < 7; ++c) g[c] = gbuf[c * n + i];
-
-  for (int k = 0; k < niter; ++k) {
-    const int iteration = start + 1 + k;
-    // RNG draws from iteration + rng_offset; the accumulation and the
-    // iteration-1 G-buffer gate use the true iteration.
-    const uint32_t riter = (uint32_t)(iteration + rng_offset);
-    float jx = 0.0f, jy = 0.0f;
-    if (flags & kAntialias) {
-      draw2(riter, pid, 0u, fast, &jx, &jy);
-      jx = jx - 0.5f;
-      jy = jy - 0.5f;
+// One bounce of a live path: intersect, the depth-0 G-buffer, shadeMaterial
+// (render/wavefront.py:_shade).
+__device__ __forceinline__ void trace_segment(const Args& a, const SceneView& s, uint32_t pid,
+                                              Path* p, float* g) {
+  Hit h = intersect(s.geo, s.gtype, s.gmat, a.n_geoms, s.faces, s.fmat, a.n_faces, s.box,
+                    a.flags & kRayCulling, p->o, p->d);
+  const bool write = p->remaining == a.depth && (a.flags & kDenoise) && p->iteration == 1 &&
+                     h.t >= 0.0f;
+  if (write) {
+    g[0] = h.normal.x;
+    g[1] = h.normal.y;
+    g[2] = h.normal.z;
+    g[3] = h.t;
+  }
+  if (!(h.t > 0.0f)) {
+    p->color = v3(0.0f, 0.0f, 0.0f);
+    p->remaining = 0;
+  } else {
+    const float* m = s.mats + (h.mat > 0 ? h.mat : 0) * kMatRow;
+    if (m[9] > 0.0f) {
+      p->color = scale(mul(p->color, v3(m[0], m[1], m[2])), m[9]);
+      p->remaining = 0;
+    } else {
+      float u1, u2;
+      draw2(p->riter, pid, (uint32_t)p->remaining, a.flags & kRngFast, &u1, &u2);
+      V3 nd, no, mult;
+      scatter(p->d, h.point, h.normal, m, u1, u2, a.flags, &nd, &no, &mult);
+      p->color = mul(p->color, mult);
+      p->d = nd;
+      p->o = no;
+      p->remaining -= 1;
     }
-    const float px = cam.pl[0] * (xf - half_w + jx);
-    const float py = cam.pl[1] * (yf - half_h + jy);
-    V3 d = normalized(v3(cam.view[0] - cam.right[0] * px - cam.up[0] * py,
-                         cam.view[1] - cam.right[1] * px - cam.up[1] * py,
-                         cam.view[2] - cam.right[2] * px - cam.up[2] * py));
-    V3 o = v3(cam.pos[0], cam.pos[1], cam.pos[2]);
-    V3 color = v3(1.0f, 1.0f, 1.0f);
-    int remaining = depth;
-    for (int b = 0; b < depth && remaining != 0; ++b) {
-      Hit h = intersect(geo, gtype, gmat, n_geoms, faces, fmat, n_faces, box, culling, o, d);
-      const bool write = b == 0 && (flags & kDenoise) && iteration == 1 && h.t >= 0.0f;
-      if (write) {
-        g[0] = h.normal.x;
-        g[1] = h.normal.y;
-        g[2] = h.normal.z;
-        g[3] = h.t;
-      }
-      // shadeMaterial (render/wavefront.py:_shade)
-      if (!(h.t > 0.0f)) {
-        color = v3(0.0f, 0.0f, 0.0f);
-        remaining = 0;
+  }
+  if (write) {
+    g[4] = p->color.x;
+    g[5] = p->color.y;
+    g[6] = p->color.z;
+  }
+}
+
+__device__ __forceinline__ void load_pixel(const Args& a, int i, float* sums, float* g) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) sums[c] = a.acc[c * a.n + i];
+#pragma unroll
+  for (int c = 0; c < 7; ++c) g[c] = a.gbuf[c * a.n + i];
+}
+
+__device__ __forceinline__ void store_pixel(const Args& a, int i, const float* sums,
+                                            const float* g) {
+#pragma unroll
+  for (int c = 0; c < 3; ++c) a.acc[c * a.n + i] = sums[c];
+#pragma unroll
+  for (int c = 0; c < 7; ++c) a.gbuf[c * a.n + i] = g[c];
+}
+
+#ifdef K1_ONE_PIXEL_PER_THREAD
+constexpr int kWitnessThreads = 128;
+
+// The first version's schedule: one pixel per thread, every iteration and
+// bounce inside the thread.
+__global__ void __launch_bounds__(kWitnessThreads) render_kernel(Args a) {
+  extern __shared__ float smem[];
+  const SceneView s = stage_scene(a, smem);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.n) return;
+  const int pid_i = a.pixel_offset + i;
+  const uint32_t pid = (uint32_t)pid_i;
+  const float xf = (float)(pid_i % a.width);
+  const float yf = (float)(pid_i / a.width);
+  float sums[3], g[7];
+  load_pixel(a, i, sums, g);
+  for (int k = 0; k < a.niter; ++k) {
+    Path p = start_path(a, pid, xf, yf, k);
+    while (p.remaining > 0) trace_segment(a, s, pid, &p, g);
+    sums[0] = sums[0] + p.color.x;
+    sums[1] = sums[1] + p.color.y;
+    sums[2] = sums[2] + p.color.z;
+  }
+  store_pixel(a, i, sums, g);
+}
+#else
+constexpr int kMaxThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+
+// Persistent warps with path regeneration (see the note at the top).
+__global__ void __launch_bounds__(kMaxThreads) render_kernel(Args a) {
+  extern __shared__ float smem[];
+  const SceneView s = stage_scene(a, smem);
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int next = 0, end = 0;         // warp-uniform: the chunk's ids not yet handed out
+  bool more = true;              // warp-uniform: the counter may hold pixels still
+  int i = -1;                    // this lane's pixel (local id), -1: none
+  int k = 0;                     // its iteration within the launch
+  uint32_t pid = 0;
+  float xf = 0.0f, yf = 0.0f;
+  float sums[3], g[7];
+  Path p;
+  p.remaining = 0;
+  unsigned long long steps = 0, segments = 0;
+  for (;;) {
+    bool fresh = false;
+    // A path that has ended: its colour into the sums, then the pixel's next
+    // iteration, or its planes out after the last one.
+    if (i >= 0 && p.remaining <= 0) {
+      sums[0] = sums[0] + p.color.x;
+      sums[1] = sums[1] + p.color.y;
+      sums[2] = sums[2] + p.color.z;
+      if (++k < a.niter) {
+        fresh = true;
       } else {
-        const float* m = mats + (h.mat > 0 ? h.mat : 0) * kMatRow;
-        if (m[9] > 0.0f) {
-          color = scale(mul(color, v3(m[0], m[1], m[2])), m[9]);
-          remaining = 0;
-        } else {
-          float u1, u2;
-          draw2(riter, pid, (uint32_t)remaining, fast, &u1, &u2);
-          V3 nd, no, mult;
-          scatter(d, h.point, h.normal, m, u1, u2, flags, &nd, &no, &mult);
-          color = mul(color, mult);
-          d = nd;
-          o = no;
-          remaining -= 1;
+        store_pixel(a, i, sums, g);
+        i = -1;
+      }
+    }
+    // Lanes without a pixel take the next ids of the warp's chunk, in lane
+    // order; an exhausted chunk is replaced from the counter.
+    for (;;) {
+      const unsigned need = __ballot_sync(kFull, i < 0);
+      if (need == 0 || !more) break;
+      if (next >= end) {
+        int base = 0;
+        if (lane == 0) base = atomicAdd(a.counter, a.chunk);
+        base = __shfl_sync(kFull, base, 0);
+        if (base >= a.n) {
+          more = false;
+          break;
+        }
+        next = base;
+        end = min(base + a.chunk, a.n);
+      }
+      const int avail = end - next;
+      const int rank = __popc(need & below);
+      if (i < 0 && rank < avail) {
+        i = next + rank;
+        k = 0;
+        const int pid_i = a.pixel_offset + i;
+        pid = (uint32_t)pid_i;
+        xf = (float)(pid_i % a.width);
+        yf = (float)(pid_i / a.width);
+        load_pixel(a, i, sums, g);
+        if (a.niter > 0) {
+          fresh = true;
+        } else {                 // no iteration: the planes go back unchanged
+          store_pixel(a, i, sums, g);
+          i = -1;
         }
       }
-      if (write) {
-        g[4] = color.x;
-        g[5] = color.y;
-        g[6] = color.z;
-      }
+      next += min(__popc(need), avail);
     }
-    a0 = a0 + color.x;
-    a1 = a1 + color.y;
-    a2 = a2 + color.z;
+    if (fresh) p = start_path(a, pid, xf, yf, k);
+    if (__ballot_sync(kFull, i >= 0) == 0) break;
+    const bool live = i >= 0 && p.remaining > 0;
+    const unsigned live_mask = __ballot_sync(kFull, live);
+    steps += live_mask != 0;
+    segments += __popc(live_mask);
+    if (live) trace_segment(a, s, pid, &p, g);
   }
-  acc[i] = a0;
-  acc[n + i] = a1;
-  acc[2 * n + i] = a2;
-#pragma unroll
-  for (int c = 0; c < 7; ++c) gbuf[c * n + i] = g[c];
+  if (a.stats != nullptr && lane == 0) {
+    atomicAdd(a.stats, 32ull * steps);
+    atomicAdd(a.stats + 1, segments);
+  }
 }
+#endif
 
 }  // namespace
 
+// Blocks of `threads` threads that fit on one SM with `smem_bytes` of scene.
+extern "C" int aptd_render_blocks_per_sm(int threads, int smem_bytes, int* blocks) {
+  if (smem_bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(render_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, render_kernel, threads,
+                                                            (size_t)smem_bytes);
+}
+
+// One launch over pixels [0, n) of the state (global ids pixel_offset + i).
+// `blocks`, `threads`, `chunk`, `counter` and `stats` are the persistent
+// schedule's; the one-pixel-per-thread build takes 128-thread blocks over n.
 extern "C" int aptd_render_megakernel(const float* scene_f, const int* scene_i, int n_geoms,
                                       int n_mats, int n_faces, const float* cam_host, int width,
                                       int height, int n, int pixel_offset, int start, int niter,
                                       int rng_offset, int depth, int flags, float* acc,
-                                      float* gbuf, void* stream) {
-  Cam cam;
+                                      float* gbuf, int* counter, int blocks, int threads,
+                                      int chunk, unsigned long long* stats, void* stream) {
+  Args a;
+  a.scene_f = scene_f;
+  a.scene_i = scene_i;
+  a.n_geoms = n_geoms;
+  a.n_mats = n_mats;
+  a.n_faces = n_faces;
   const float* c = cam_host;
   for (int k = 0; k < 3; ++k) {
-    cam.pos[k] = c[k];
-    cam.view[k] = c[3 + k];
-    cam.up[k] = c[6 + k];
-    cam.right[k] = c[9 + k];
+    a.cam.pos[k] = c[k];
+    a.cam.view[k] = c[3 + k];
+    a.cam.up[k] = c[6 + k];
+    a.cam.right[k] = c[9 + k];
   }
-  cam.pl[0] = c[12];
-  cam.pl[1] = c[13];
-  size_t smem = sizeof(float) * (n_geoms * kGeomRow + n_mats * kMatRow + n_faces * kFaceRow + 6) +
-                sizeof(int) * (2 * n_geoms + n_faces);
+  a.cam.pl[0] = c[12];
+  a.cam.pl[1] = c[13];
+  a.width = width;
+  a.height = height;
+  a.n = n;
+  a.pixel_offset = pixel_offset;
+  a.start = start;
+  a.niter = niter;
+  a.rng_offset = rng_offset;
+  a.depth = depth;
+  a.flags = flags;
+  a.acc = acc;
+  a.gbuf = gbuf;
+  a.counter = counter;
+  a.chunk = chunk;
+  a.stats = stats;
+  const size_t smem = scene_smem_bytes(n_geoms, n_mats, n_faces);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(render_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(render_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  if (blocks > 0) {
-    render_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-        scene_f, scene_i, n_geoms, n_mats, n_faces, cam, width, height, n, pixel_offset, start,
-        niter, rng_offset, depth, flags, acc, gbuf);
+#ifdef K1_ONE_PIXEL_PER_THREAD
+  threads = kWitnessThreads;
+  blocks = (n + threads - 1) / threads;
+#endif
+  if (n > 0 && blocks > 0) {
+    render_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(a);
   }
   return (int)cudaGetLastError();
 }

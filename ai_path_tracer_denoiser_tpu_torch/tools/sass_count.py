@@ -8,7 +8,10 @@ test's marker instruction, and counts each such loop body's instructions
 * ``face``: one Moller-Trumbore test per ``MUFU.RCP`` (its one IEEE
   reciprocal; the reciprocal's rare slow path is a subroutine outside the
   loop and is not counted);
-* ``slab``: one slab test per six ``FMUL`` (two plane distances per axis).
+* ``slab``: one slab test per six ``FMUL`` (two plane distances per axis);
+* ``geom``: one geom test per loop body, in the loops that read shared
+  memory (any ``LDS``): the render megakernel's geom loop, in a build whose
+  face loop is compiled out (tools/k1_sweep.py).
 
 A loop is a backward branch and the code from its target to it.  The count
 is static: every instruction of the body once, including those that a
@@ -29,10 +32,13 @@ import subprocess
 from collections import Counter
 from typing import Dict, List
 
-MARKERS = {"face": ("MUFU.RCP", 1), "slab": ("FMUL", 6)}
+# unit: (marker opcode, or its family before the first "." where it ends in
+# "*"; markers per test, or None for one test per loop body)
+MARKERS = {"face": ("MUFU.RCP", 1), "slab": ("FMUL", 6), "geom": ("LDS*", None)}
 _INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
 _LABEL = re.compile(r"^\s*(\.L_x_\d+):")
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
+_RES_FUNC = re.compile(r"Function\s*:\s*(\S+)|Function\s+([^\s:]+)\s*:")
 _BRANCH = re.compile(r"\bBRA\b(?:\.\S+)?\s+(?:`\((\.L_x_\d+)\)|0x([0-9a-f]+))")
 
 
@@ -98,19 +104,26 @@ def loops(insns) -> List[tuple]:
     return out
 
 
+def is_marker(op: str, marker: str) -> bool:
+    if marker.endswith("*"):
+        return op.split(".")[0] == marker[:-1]
+    return op == marker
+
+
 def count_loops(insns, per: str) -> List[dict]:
     """The innermost loops holding the marker of ``per``: instructions,
     tests and instructions per test of each body."""
     marker, per_test = MARKERS[per]
     ops = [opcode(t) for _, t, _ in insns]
     with_marker = [(a, b) for a, b in loops(insns)
-                   if any(o == marker for o in ops[a:b + 1])]
+                   if any(is_marker(o, marker) for o in ops[a:b + 1])]
     inner = [(a, b) for a, b in with_marker
              if not any((c, d) != (a, b) and a <= c and d <= b for c, d in with_marker)]
     out = []
     for a, b in sorted(set(inner)):
         body = [o for o in ops[a:b + 1] if o != "NOP"]
-        tests = sum(o == marker for o in body) / per_test
+        tests = (1.0 if per_test is None
+                 else sum(is_marker(o, marker) for o in body) / per_test)
         hist = Counter(o.split(".")[0] for o in body)
         out.append({"first_address": insns[a][0], "instructions": len(body),
                     "tests": tests, "instructions_per_test": len(body) / tests,
@@ -125,6 +138,29 @@ def count_library(path: str, per: str) -> List[dict]:
     return [{"library": os.path.basename(path), "function": name, "per": per,
              "loops": count_loops(insns, per)}
             for name, insns in parse(sass).items() if insns]
+
+
+def parse_resource_usage(text: str) -> Dict[str, dict]:
+    """{kernel function: {"REG": registers, "STACK": .., "SHARED": .., "LOCAL": ..}} of a
+    ``cuobjdump -res-usage`` listing."""
+    usage, name = {}, None
+    for line in text.splitlines():
+        m = _RES_FUNC.search(line)
+        if m:
+            name = m.group(1) or m.group(2)
+            continue
+        if name is not None and "REG:" in line:
+            usage[name] = {k: int(v) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)",
+                                                            line)}
+            name = None
+    return usage
+
+
+def resource_usage(path: str) -> Dict[str, dict]:
+    """``parse_resource_usage`` of a built library."""
+    return parse_resource_usage(subprocess.run(
+        [_cuobjdump(), "-res-usage", path], capture_output=True, text=True, check=True,
+        timeout=300).stdout)
 
 
 def main(argv=None) -> int:

@@ -5,7 +5,12 @@
 
 Builds the port's ten CUDA kernels from csrc/, holds each against its
 plain PyTorch version on the card, and drives the main paths through the
-CLI's entry point.  Training: `datagen` renders a 14-frame 512x512 corpus
+CLI's entry point.  The render megakernel is also held bit for bit to its
+one-pixel-per-thread witness build (the first version's schedule and
+arithmetic) on six inputs, and timed as events around its wrapper's calls
+and as device time of the launch alone, on the interactive frame and on a
+datagen launch (512x512, 64 iterations), with its lane efficiency.
+Training: `datagen` renders a 14-frame 512x512 corpus
 of the Cornell box with the render megakernel, `train` takes one epoch (3
 Adam steps) at batch 4 on 7-frame 256x256 crops at the reference widths in
 bfloat16 with the corpus on the card (every conv's forward pass and input
@@ -221,7 +226,7 @@ def main():
         derive_camera, load_scene, orbit_camera, orbit_params_from_camera)
     from ai_path_tracer_denoiser_tpu_torch.ops import bvh as mesh_bvh
     from ai_path_tracer_denoiser_tpu_torch.ops.vec3 import Vec3
-    from ai_path_tracer_denoiser_tpu_torch.tools import k4_sweep, mm_feasibility
+    from ai_path_tracer_denoiser_tpu_torch.tools import k1_sweep, k4_sweep, mm_feasibility
     from ai_path_tracer_denoiser_tpu_torch.utils.cuda_build import build_all
     from ai_path_tracer_denoiser_tpu_torch.utils.imageio import read_png, save_png_scaled
 
@@ -245,13 +250,15 @@ def main():
                mesh_binned.PAIR_KERNEL, mesh_kernel.KERNEL, mesh_kernel_v3.KERNEL,
                mm_feasibility.VPU_KERNEL, mm_feasibility.MMA_KERNEL)
     require(len(kernels) == 10, "ten kernels")
-    # K4 at the witness thresholds (phase 10e), not counted among the ten
+    # K4 at the witness thresholds (phase 10e) and K1's one-pixel-per-thread
+    # witness (phase 3), not counted among the ten
     k4_witnesses = {k: mesh_kernel_v2p.kernel_build(k, f"mesh_bvh_v2p_kthr{k}")
                     for k in K4_WITNESSES}
     t0 = time.time()
-    build_all(kernels + tuple(k4_witnesses.values()))
+    build_all(kernels + tuple(k4_witnesses.values()) + (cuda_backend.WITNESS,))
     ptxas = {k.name: [ln.strip() for ln in k.build_log.splitlines()
-                      if "registers" in ln or "spill" in ln] for k in kernels}
+                      if "registers" in ln or "spill" in ln]
+             for k in kernels + (cuda_backend.WITNESS,)}
     emit({"phase": "build", "seconds": round(time.time() - t0, 2), "ptxas": ptxas})
 
     # ---- 3. render megakernel vs its plain version (256x256, depth 8) ----
@@ -287,6 +294,44 @@ def main():
         require(close.mean() >= 0.999, "megakernel G-buffer vs plain")
         require(hit_same >= 0.999, "megakernel hit mask vs plain")
         require(rel < 1e-3 and psnr >= 40.0, "megakernel radiance vs plain")
+    # K1 against its one-pixel-per-thread witness (the first version's
+    # schedule and arithmetic), bit for bit: the main path's frame, several
+    # iterations, the small mesh with its AABB gate on and off, a tile of a
+    # length no multiple of 32 at a pixel offset, the datagen launch
+    mesh_small = load_scene(os.path.join(ROOT, "scenes", "cornell_mesh_icosahedron.txt"),
+                            device=dev)
+    mc = mesh_small.camera
+    mesh_small = dataclasses.replace(mesh_small, camera=derive_camera(
+        (256, 256), float(mc.fov[1]), mc.position.numpy(), mc.look_at.numpy(),
+        mc.up.numpy()))
+    frame_scene = k1_sweep.shape_scene("cornell_800_niter1", dev)[0]
+    datagen_scene, datagen_niter = k1_sweep.shape_scene("cornell_512_niter64", dev)
+    full = init_render_state(frame_scene, opts)
+    tile_state = dataclasses.replace(full, accum=full.accum[:, :100001].contiguous() + 0.5,
+                                     gbuf=full.gbuf[:, :100001].contiguous(), iteration=1,
+                                     rng_offset=7919)
+    witness_cases = [
+        ("cornell 800x800, 1 iteration", frame_scene, opts, 1, None, 0),
+        ("cornell 256x256, 4 iterations", small, opts, 4, None, 0),
+        ("icosahedron 256x256, culling on", mesh_small, opts, 2, None, 0),
+        ("icosahedron 256x256, culling off", mesh_small,
+         dataclasses.replace(opts, ray_culling=False), 2, None, 0),
+        ("cornell 800x800, tile of 100,001 at 123,457, iteration 2", frame_scene, opts, 1,
+         tile_state, 123457),
+        ("cornell 512x512, 64 iterations", datagen_scene, opts, datagen_niter, None, 0)]
+    for label, sc_, op_, niter, st_, off in witness_cases:
+        got = cuda_backend.render_cuda(sc_, op_, niter, st_, off)
+        want = cuda_backend.render_cuda(sc_, op_, niter, st_, off, kernel=cuda_backend.WITNESS)
+        require(torch.equal(got.accum, want.accum) and torch.equal(got.gbuf, want.gbuf),
+                f"K1 equals its witness bit for bit: {label}")
+        require(bool(torch.isfinite(got.accum).all()) and float(got.accum.sum()) > 0,
+                f"K1 output finite and lit: {label}")
+    emit({"phase": "render_witness_check", "cases": [c[0] for c in witness_cases],
+          "witness_launches": cuda_backend.WITNESS.launches,
+          "check": "accum and G-buffer torch.equal to the -DK1_ONE_PIXEL_PER_THREAD build "
+                   "(one pixel per thread, nested loops, every geom's world normal, min/max "
+                   "by compare and select)"})
+    del full, tile_state
 
     # ---- 4. conv kernel vs its plain version at the frame's 28 shapes ----
     params, bn_state, meta = load_model(MODEL, device=dev)
@@ -455,9 +500,26 @@ def main():
     k1_plain_ms = time_ms(plain_render, 3, warmup=1)
     n_bytes, ops = cuda_backend.render_work(frame0, w0 * h0, 1, plain_state["s"].segments)
     k1_bound, k1_by = bound_ms(n_bytes, ops, FP32_FLOPS)
+    # device time of the launch alone (CUDA graph replay), the datagen
+    # launch, lane efficiencies (tools/k1_sweep.py)
+    k1_shapes = {name: k1_sweep.measure(name, dev, time_ms, graph_ms)
+                 for name in k1_sweep.SHAPES}
+    k1_device_ms = k1_shapes["cornell_800_niter1"]["device_ms"]
+    dg = k1_shapes["cornell_512_niter64"]
+    dg_scene = k1_sweep.shape_scene("cornell_512_niter64", dev)[0]
+    dg_bound = bound_ms(*cuda_backend.render_work(dg_scene, 512 * 512, dg["niter"],
+                                                  dg["segments"]), FP32_FLOPS)
     emit({"phase": "render_timing", "card": smi, "kernel_ms": k1_ms,
-          "plain_ms": k1_plain_ms, "bound_ms": k1_bound, "bound_by": k1_by,
-          "segments": plain_state["s"].segments, "bytes": n_bytes, "ops": ops})
+          "device_ms": k1_device_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
+          "bound_by": k1_by, "segments": plain_state["s"].segments, "bytes": n_bytes,
+          "ops": ops, "registers": ptxas["render_megakernel"],
+          "witness_registers": ptxas["render_megakernel_witness"],
+          "shapes": k1_shapes, "datagen_bound_ms": dg_bound[0],
+          "columns": "kernel_ms: CUDA events around render_cuda calls back to back (scene "
+                     "packing and buffer copies included); device_ms: the launch alone, "
+                     "CUDA graph replay; shapes: tools/k1_sweep.py's measure (lane "
+                     "efficiency of one pixel per thread from the plain per-pixel segment "
+                     "counts, the kernel's own from its lane-step count)"})
 
     # Both conv kernels per shape of the frame, side by side, beside their
     # plain versions, the bound and F.conv2d: device time per call (graph
@@ -1527,8 +1589,12 @@ def main():
          "source": "ai_path_tracer_denoiser_tpu_torch/csrc/render_megakernel.cu",
          "replaces": "ai_path_tracer_denoiser_tpu/render/pallas_backend.py:588",
          "launches": launches["render_megakernel"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound,
-         "bound_by": k1_by, "library_ms": None},
+         "ms": k1_ms, "device_ms": k1_device_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+         "lane_efficiency": k1_shapes["cornell_800_niter1"]["kernel"]["lane_efficiency"],
+         "datagen_launch": {"res": 512, "niter": dg["niter"], "ms": dg["events_ms"],
+                            "device_ms": dg["device_ms"], "bound_ms": dg_bound[0],
+                            "lane_efficiency": dg["kernel"]["lane_efficiency"]}},
         {"name": "conv3x3_act", "route": "cuda",
          "source": "ai_path_tracer_denoiser_tpu_torch/csrc/conv3x3_act.cu",
          "replaces": "ai_path_tracer_denoiser_tpu/models/conv_kernel.py:287",

@@ -242,6 +242,125 @@ def test_megakernel_matches_plain_on_card(cuda_device, name):
     assert rel < 1e-3 and psnr >= 40.0, (rel, psnr)
 
 
+def _k1_pair(scene, opts, niter, state=None, pixel_offset=0, **launch):
+    """K1 and its one-pixel-per-thread witness on the same inputs: the two
+    results' (accum, gbuf)."""
+    out = []
+    for kernel in (cuda_backend.KERNEL, cuda_backend.WITNESS):
+        st = state if state is not None else init_render_state(scene, opts)
+        acc, gbuf = st.accum.clone(), st.gbuf.clone()
+        floats, ints = cuda_backend.pack_scene(scene)
+        cuda_backend.launch_megakernel(
+            floats, ints, cuda_backend.camera_row(scene), acc, gbuf,
+            counts=(scene.geoms.count, scene.materials.count, scene.mesh.num_faces),
+            resolution=scene.camera.resolution, depth=scene.trace_depth,
+            flags=cuda_backend._flags(opts), pixel_offset=pixel_offset,
+            start=st.iteration, niter=niter, rng_offset=st.rng_offset, kernel=kernel,
+            **(launch if kernel is cuda_backend.KERNEL else {}))
+        out.append((acc, gbuf))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,niter,culling,tile", [
+    ("cornell_box.txt", 1, True, False), ("cornell_box.txt", 4, True, False),
+    ("cornell_mesh_icosahedron.txt", 2, True, False),
+    ("cornell_mesh_icosahedron.txt", 2, False, False),
+    ("cornell_box.txt", 3, True, True)])
+def test_k1_equals_its_witness_on_card(cuda_device, name, niter, culling, tile):
+    """The persistent kernel gives the one-pixel-per-thread witness's bits:
+    whole frames, a mesh with the AABB gate on and off, and a tile of 1,001
+    pixels (no multiple of 32) at a pixel offset, past iteration 1."""
+    scene = _scene(name, cuda_device)
+    opts = RenderOptions(ray_culling=culling)
+    state, offset = None, 0
+    if tile:
+        full = init_render_state(scene, opts)
+        state = dataclasses.replace(full, accum=full.accum[:, :1001].contiguous() + 0.25,
+                                    gbuf=full.gbuf[:, :1001].contiguous(), iteration=1,
+                                    rng_offset=7)
+        offset = 1517
+    (acc, gbuf), (w_acc, w_gbuf) = _k1_pair(scene, opts, niter, state, offset)
+    assert torch.equal(acc, w_acc) and torch.equal(gbuf, w_gbuf)
+    assert bool((acc > 0).any()) and bool((gbuf != 0).any()) == (not tile)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads,blocks_per_sm,chunk", [(32, 1, 1), (256, 0, 7),
+                                                         (64, 2, 1000)])
+def test_k1_launch_shapes_equal_the_witness_on_card(cuda_device, threads, blocks_per_sm,
+                                                    chunk):
+    scene = _scene("cornell_box.txt", cuda_device)
+    (acc, gbuf), (w_acc, w_gbuf) = _k1_pair(scene, RenderOptions(), 2, threads=threads,
+                                            blocks_per_sm=blocks_per_sm, chunk=chunk)
+    assert torch.equal(acc, w_acc) and torch.equal(gbuf, w_gbuf)
+
+
+@pytest.mark.cuda
+def test_k1_calls_on_two_streams_equal_the_witness_on_card(cuda_device):
+    scenes = [_scene("cornell_box.txt", cuda_device),
+              _scene("cornell_mesh_icosahedron.txt", cuda_device)]
+    opts = RenderOptions()
+    want = [cuda_backend.render_cuda(sc, opts, 2, kernel=cuda_backend.WITNESS) for sc in scenes]
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    for _ in range(3):
+        got_main = cuda_backend.render_cuda(scenes[0], opts, 2)
+        with torch.cuda.stream(side):
+            got_side = cuda_backend.render_cuda(scenes[1], opts, 2)
+        torch.cuda.synchronize(cuda_device)
+        for got, ref in ((got_main, want[0]), (got_side, want[1])):
+            assert torch.equal(got.accum, ref.accum) and torch.equal(got.gbuf, ref.gbuf)
+
+
+@pytest.mark.cuda
+def test_k1_counts_the_plain_segments_on_card(cuda_device):
+    """The kernel's own count of segments traced is the plain bounce loop's
+    (within 0.1%: a near-tie hit may end one path a bounce apart), and its
+    lane-steps are at least the segments."""
+    scene = _scene("cornell_box.txt", cuda_device)
+    opts = RenderOptions()
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    _k1_pair(scene, opts, 2, stats=stats)
+    lane_steps, segments = stats.tolist()
+    plain = int(cuda_backend.path_segments(scene, opts, 2).sum())
+    assert abs(segments - plain) <= 1e-3 * plain
+    assert segments <= lane_steps and lane_steps % 32 == 0
+
+
+@pytest.mark.cuda
+def test_launch_megakernel_raises_on_wrong_inputs_on_card(cuda_device):
+    scene = _scene("cornell_box.txt", cuda_device)
+    opts = RenderOptions()
+    floats, ints = cuda_backend.pack_scene(scene)
+    n = RES * RES
+    good = dict(floats=floats, ints=ints, cam_row=cuda_backend.camera_row(scene),
+                acc=torch.zeros((3, n), device=cuda_device),
+                gbuf=torch.zeros((7, n), device=cuda_device))
+    kw = dict(counts=(scene.geoms.count, scene.materials.count, scene.mesh.num_faces),
+              resolution=scene.camera.resolution, depth=scene.trace_depth,
+              flags=cuda_backend._flags(opts))
+    cuda_backend.launch_megakernel(**good, **kw)
+    bad = [("acc", torch.zeros((3, n), device=cuda_device, dtype=torch.float64)),
+           ("acc", torch.zeros((4, n), device=cuda_device)),
+           ("acc", torch.zeros((3, n))),
+           ("gbuf", torch.zeros((7, n - 1), device=cuda_device)),
+           ("gbuf", torch.zeros((n, 7), device=cuda_device).T),
+           ("floats", floats[:-1]), ("floats", floats.cpu()), ("ints", ints.float()),
+           ("cam_row", good["cam_row"][:13]), ("cam_row", good["cam_row"].astype(np.float64))]
+    launches = cuda_backend.KERNEL.launches
+    for name, value in bad:
+        with pytest.raises(ValueError):
+            cuda_backend.launch_megakernel(**{**good, name: value}, **kw)
+    for extra in (dict(stats=torch.zeros(2, dtype=torch.int32, device=cuda_device)),
+                  dict(pixel_offset=1), dict(niter=-1), dict(threads=48),
+                  dict(counts=(scene.geoms.count + 1, scene.materials.count, 0))):
+        with pytest.raises(ValueError):
+            cuda_backend.launch_megakernel(**good, **{**kw, **extra})
+    assert cuda_backend.KERNEL.launches == launches
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,w,c,co,affine", [(0, 25, 25, 202, 101, False),
                                                (0, 50, 50, 76, 101, True),

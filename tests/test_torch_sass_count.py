@@ -82,3 +82,33 @@ def test_labelled_branches_are_followed():
     insns = sass_count.parse(text)["_ZN12_GLOBAL__N_111pair_kernelEv"]
     (loop,) = sass_count.count_loops(insns, "face")
     assert (loop["first_address"], loop["instructions"], loop["tests"]) == (0x10, 3, 1)
+
+
+def test_geom_loops_count_one_test_per_body_of_a_shared_memory_loop():
+    """``geom``: the innermost loops that read shared memory, one geom test
+    per pass; a loop without LDS (ray generation) is not counted."""
+    lines = [(0x00, "S2R R0, SR_TID.X")]
+    lines += [(0x10, "LDS.128 R4, [R2]"), (0x20, "FMUL R8, R4, R5"), (0x30, "MUFU.RSQ R9, R8"),
+              (0x40, "LDS R10, [R2+0x10]"), (0x50, "NOP"), (0x60, "@P0 BRA 0x10")]
+    lines += [(0x70, "MUFU.RSQ R1, R2"), (0x80, "FADD R3, R1, R1"), (0x90, "@P1 BRA 0x70")]
+    lines += [(0xa0, "@P2 BRA 0x10"), (0xb0, "EXIT")]
+    insns = sass_count.parse(listing(lines))["_ZN12_GLOBAL__N_111pair_kernelEv"]
+    (loop,) = sass_count.count_loops(insns, "geom")
+    assert (loop["first_address"], loop["instructions"], loop["tests"]) == (0x10, 5, 1.0)
+    assert loop["by_opcode"]["LDS"] == 2
+
+
+def test_resource_usage_reads_registers_per_function():
+    text = """
+Resource usage:
+ Common:
+  GLOBAL:0
+ Function _ZN12_GLOBAL__N_113render_kernelENS_4ArgsE:
+  REG:90 STACK:8 SHARED:0 LOCAL:0 CONSTANT[0]:664 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _Z5otherv:
+  REG:32 STACK:0 SHARED:1024 LOCAL:4 CONSTANT[0]:352 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+    usage = sass_count.parse_resource_usage(text)
+    assert usage == {"_ZN12_GLOBAL__N_113render_kernelENS_4ArgsE":
+                     {"REG": 90, "STACK": 8, "SHARED": 0, "LOCAL": 0},
+                     "_Z5otherv": {"REG": 32, "STACK": 0, "SHARED": 1024, "LOCAL": 4}}
