@@ -1,9 +1,11 @@
 // Shared device code of the mesh kernels (mesh_bvh_v2p.cu, mesh_bvh_v2.cu,
-// mesh_bvh_v3.cu, mesh_binned_phase1.cu, mesh_binned_pair.cu,
-// mm_visit_vpu.cu): the slab test that gates a hierarchy node and the
-// one-sided Moller-Trumbore test, both written in the operation order of
-// their plain PyTorch versions (render/mesh_kernel_v2p.py:_slab_live,
-// ops/intersect.py:_triangle_t), and what the traversals do with a winner.
+// mesh_bvh_v3.cu, mesh_binned_phase1.cu, mesh_binned_pair.cu) and the
+// visit-cost probe's (mm_visit_vpu.cu, mm_visit_mma.cu): the slab test that
+// gates a hierarchy node and the one-sided Moller-Trumbore test, both
+// written in the operation order of their plain PyTorch versions
+// (render/mesh_kernel_v2p.py:_slab_live, ops/intersect.py:_triangle_t),
+// what the traversals do with a winner, and the merge of the probe's
+// partial states.
 // The sources are built with -fmad=false and without fast math, so every
 // operation rounds as the separate PyTorch kernels of the plain versions do.
 #pragma once
@@ -182,5 +184,48 @@ __device__ __forceinline__ void store_hit(float* out, int* mat_out, size_t n, in
   out[6 * n + i] = normal.z;
   mat_out[i] = mat;
 }
+
+// The last step of the probe's split visit schedule: block s of `splits`
+// ran the visits [s n_visits / splits, (s + 1) n_visits / splits) of the
+// whole tile into its partial state, rows (kRows, n) at partial + s kRows n,
+// row 0 its t.  The states are merged as the visits themselves update the
+// state: in range order, a later range replacing the state only where its
+// t is strictly smaller, so that a tie keeps the earlier range's winner.
+// Taken as a tree: one warp per ray, each lane the first smallest t of the
+// ranges lane, lane + 32, ..., then the smallest (t, range) pair of the
+// warp, equal to the sequential merge.  Rows of out past kRows are 0.
+template <int kRows, int kOutRows>
+__global__ void __launch_bounds__(256)
+    merge_visit_states(const float* __restrict__ partial, int splits, int n,
+                       float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int ray = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (ray >= n) return;   // a whole warp
+  float best_t = INFINITY;
+  int best_s = 0x7fffffff;
+#pragma unroll 4
+  for (int s = lane; s < splits; s += 32) {
+    const float t = partial[(size_t)s * kRows * n + ray];
+    if (t < best_t) {
+      best_t = t;
+      best_s = s;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(0xffffffffu, best_t, off);
+    const int os = __shfl_xor_sync(0xffffffffu, best_s, off);
+    if (ot < best_t || (ot == best_t && os < best_s)) {
+      best_t = ot;
+      best_s = os;
+    }
+  }
+  if (lane < kOutRows)
+    out[(size_t)lane * n + ray] =
+        lane < kRows ? partial[((size_t)best_s * kRows + lane) * n + ray] : 0.0f;
+}
+
+// Blocks of 256 threads for merge_visit_states over n rays.
+inline int merge_blocks(int n) { return (n * 32 + 255) / 256; }
 
 }  // namespace aptd

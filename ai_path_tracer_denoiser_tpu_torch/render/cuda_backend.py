@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -138,24 +138,12 @@ def k1_plan(n: int, sm_count: int, fit_per_sm: int, threads: int = K1_THREADS,
     return K1Plan(n=n, blocks=blocks, threads=threads, chunk=chunk)
 
 
-_FIT: Dict[Tuple[str, int, int, int], int] = {}
-
-
-def _fit_per_sm(kernel: CudaKernel, device: torch.device, threads: int, smem: int) -> int:
-    """Blocks per SM that fit (the occupancy API), once per build and shape."""
-    key = (kernel.name, device.index, threads, smem)
-    if key not in _FIT:
-        out = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            check(kernel.lib().aptd_render_blocks_per_sm(threads, smem, ctypes.byref(out)),
-                  "render megakernel occupancy")
-        _FIT[key] = out.value
-    return _FIT[key]
-
-
 def pallas_eligible(scene: Scene, options: RenderOptions) -> bool:
-    """Whether the megakernel takes this scene and these options."""
+    """Whether the megakernel takes this scene and these options: a packed
+    scene larger than a block's shared memory is not taken."""
     return (scene.mesh.num_faces <= MESH_BAKE_MAX_FACES
+            and scene_home_bytes(scene.geoms.count, scene.materials.count,
+                                 scene.mesh.num_faces) <= SCENE_HOME_BYTES
             and not options.sort_material
             and not options.cache_first_bounce
             and not options.motion_blur
@@ -263,8 +251,8 @@ def launch_megakernel(floats: torch.Tensor, ints: torch.Tensor, cam_row: np.ndar
     if niter < 0:
         raise ValueError(f"niter {niter} < 0")
     props = torch.cuda.get_device_properties(dev)
-    plan = k1_plan(n, props.multi_processor_count,
-                   _fit_per_sm(kernel, dev, threads, smem), threads, blocks_per_sm, chunk)
+    fit = kernel.blocks_per_sm("aptd_render_blocks_per_sm", dev, threads, smem)
+    plan = k1_plan(n, props.multi_processor_count, fit, threads, blocks_per_sm, chunk)
     counter = plan.counter(dev)
     lib = kernel.lib()
     with torch.cuda.device(dev):

@@ -328,7 +328,8 @@ def _resolve_backend(scene: Scene, options: RenderOptions) -> str:
     if options.backend == "pallas":
         if not eligible:
             raise ValueError("backend='pallas' but scene/options ineligible "
-                             "(mesh over 64 faces, sort_material, "
+                             "(mesh over 64 faces, the packed scene exceeds the "
+                             "megakernel's shared memory, sort_material, "
                              "cache_first_bounce, motion_blur or bfloat16 "
                              "accumulation)")
         return "pallas"

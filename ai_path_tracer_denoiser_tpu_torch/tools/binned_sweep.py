@@ -26,7 +26,6 @@ timers):
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import os
@@ -37,7 +36,7 @@ import torch
 from ..config import RenderOptions
 from ..render import mesh_binned, render_gbuffer_frame
 from ..scene import load_scene, orbit_camera, orbit_params_from_camera
-from ..utils.cuda_build import BASE_FLAGS, BUILD_DIR, CSRC_DIR, CudaKernel, build_all
+from ..utils.cuda_build import CudaKernel, build_all, edited_build, swapped
 from .sass_count import count_library
 
 REPS = 5
@@ -80,36 +79,16 @@ def record_calls(scene):
     return calls
 
 
-@contextlib.contextmanager
 def launching(kind: str, kernel: CudaKernel):
     """The kernel's wrapper launching another build."""
-    attr = KINDS[kind][0]
-    saved = getattr(mesh_binned, attr)
-    setattr(mesh_binned, attr, kernel)
-    try:
-        yield
-    finally:
-        setattr(mesh_binned, attr, saved)
+    return swapped(mesh_binned, KINDS[kind][0], kernel)
 
 
 def variant_build(name: str) -> CudaKernel:
     """A build of the shipped source with the variant's edits, written
     into the build directory."""
     kind, edits = VARIANTS[name]
-    shipped = getattr(mesh_binned, KINDS[kind][0])
-    with open(shipped.source) as f:
-        text = f.read()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise ValueError(f"{name}: {old!r} occurs {text.count(old)} times")
-        text = text.replace(old, new)
-    path = os.path.join(BUILD_DIR, "variants", f"{name}.cu")
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(text)
-    declare = mesh_binned._declare_phase1 if kind == "phase1" else mesh_binned._declare_pair
-    return CudaKernel(name, path, declare=declare, headers=shipped.headers,
-                      extra_flags=shipped.flags[len(BASE_FLAGS):] + (f"-I{CSRC_DIR}",))
+    return edited_build(getattr(mesh_binned, KINDS[kind][0]), name, edits)
 
 
 def frame_ms(calls, kind, timer) -> list:

@@ -50,7 +50,8 @@ import torch
 from ..config import RenderOptions
 from ..render import cuda_backend, init_render_state
 from ..scene import derive_camera, load_scene, orbit_camera, orbit_params_from_camera
-from ..utils.cuda_build import BASE_FLAGS, BUILD_DIR, CSRC_DIR, CudaKernel, build_all, check
+from ..utils.cuda_build import (BASE_FLAGS, BUILD_DIR, CSRC_DIR, CudaKernel, build_all, check,
+                                rebuilt)
 from .sass_count import count_library, resource_usage
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -177,15 +178,6 @@ def reg_cap_build(regs: int) -> CudaKernel:
                       declare=cuda_backend._declare)
 
 
-def source_build(path: str) -> CudaKernel:
-    """Another version of the source, built with the shipped flags."""
-    shipped = cuda_backend.KERNEL
-    name = os.path.splitext(os.path.basename(path))[0]
-    return CudaKernel(name, os.path.abspath(path),
-                      extra_flags=shipped.flags[len(BASE_FLAGS):] + (f"-I{CSRC_DIR}",),
-                      declare=cuda_backend._declare)
-
-
 def variants(dev, rounds, graph_ms, launch_shapes, caps, sources):
     """Every launch shape of ``launch_shapes``, every register-capped build
     and every other source: equal to the shipped kernel bit for bit on both
@@ -234,7 +226,7 @@ def main(argv=None) -> int:
     builds = [cuda_backend.KERNEL] + ([cuda_backend.WITNESS]
                                       if hasattr(cuda_backend, "WITNESS") else [])
     caps = {r: reg_cap_build(r) for r in REG_CAPS} if args.variants else {}
-    sources = [source_build(p) for p in args.sources]
+    sources = [rebuilt(cuda_backend.KERNEL, p) for p in args.sources]
     build_all([*builds, *sass.values(), *caps.values(), *sources])
     for name in SHAPES:
         print(json.dumps(measure(name, dev, time_ms, graph_ms)), flush=True)

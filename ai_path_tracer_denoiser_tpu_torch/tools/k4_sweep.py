@@ -16,7 +16,6 @@ Run on an NVIDIA GPU:  python -m ai_path_tracer_denoiser_tpu_torch.tools.k4_swee
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import os
@@ -27,22 +26,16 @@ import torch
 from ..config import RenderOptions
 from ..render import mesh_kernel_v2p, render_gbuffer_frame
 from ..scene import load_scene, orbit_camera, orbit_params_from_camera
-from ..utils.cuda_build import CudaKernel, build_all
+from ..utils.cuda_build import CudaKernel, build_all, swapped
 
 THRESHOLDS = (1, 2, 4, 8, 12, 16, 24, 33)   # 1: every cluster lane by ray; 33: ray by ray
 SCENES = ("cornell_mesh_blob.txt", "cornell_mesh_statue.txt")
 REPS = 3
 
 
-@contextlib.contextmanager
 def launching(kernel: CudaKernel):
     """K4's wrapper launching another build of its source."""
-    saved = mesh_kernel_v2p.KERNEL
-    mesh_kernel_v2p.KERNEL = kernel
-    try:
-        yield
-    finally:
-        mesh_kernel_v2p.KERNEL = saved
+    return swapped(mesh_kernel_v2p, "KERNEL", kernel)
 
 
 def record_calls(scene, octant_sort: bool):

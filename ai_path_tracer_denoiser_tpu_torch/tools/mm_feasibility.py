@@ -20,6 +20,15 @@ Run:  python -m ai_path_tracer_denoiser_tpu_torch.tools.mm_feasibility
 A visit's update is a strict ``<`` over 64 repeating clusters, so the state
 after any ``n_visits >= 64`` equals the state after 64: the plain versions
 stop there, whatever ``n_visits`` is.
+
+On the card both kernels run every one of the ``n_visits`` visits, split
+over the card: block s of S runs the visits ``visit_ranges(n_visits, S)[s]``
+for the whole tile into a partial state, and the S states are merged in
+range order with a strict ``<`` (``merge_visit_states``), which gives the
+sequential state bit for bit.  S is the SMs times the blocks that fit
+(``default_splits``); ``splits=1`` is one block on one SM, the first
+version's shape.  The blocks' shapes are constants of the sources, chosen
+by ``tools/visit_sweep.py``.
 """
 from __future__ import annotations
 
@@ -28,6 +37,7 @@ import ctypes
 import json
 import subprocess
 import time
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,13 +59,17 @@ _FLT_EPS = 1.1920929e-07
 def _declare_vpu(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.aptd_mm_visit_vpu.restype = i
-    lib.aptd_mm_visit_vpu.argtypes = [p, p, i, p, p]
+    lib.aptd_mm_visit_vpu.argtypes = [p, p, i, i, p, p, p, p]
+    lib.aptd_mm_visit_vpu_blocks_per_sm.restype = i
+    lib.aptd_mm_visit_vpu_blocks_per_sm.argtypes = [p]
 
 
 def _declare_mma(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.aptd_mm_visit_mma.restype = i
-    lib.aptd_mm_visit_mma.argtypes = [p, p, i, i, p, p]
+    lib.aptd_mm_visit_mma.argtypes = [p, p, i, i, i, p, p, p, p]
+    lib.aptd_mm_visit_mma_blocks_per_sm.restype = i
+    lib.aptd_mm_visit_mma_blocks_per_sm.argtypes = [i, p]
 
 
 VPU_KERNEL = CudaKernel("mm_visit_vpu", "mm_visit_vpu.cu", extra_flags=("-fmad=false",),
@@ -63,7 +77,69 @@ VPU_KERNEL = CudaKernel("mm_visit_vpu", "mm_visit_vpu.cu", extra_flags=("-fmad=f
 # -fmad=false: the feature rows o x d then equal the plain version's bit for
 # bit, and the two differ only by the product's precision
 MMA_KERNEL = CudaKernel("mm_visit_mma", "mm_visit_mma.cu", extra_flags=("-fmad=false",),
-                        declare=_declare_mma)
+                        declare=_declare_mma, headers=("mesh_common.cuh",))
+
+
+def visit_ranges(n_visits: int, splits: int) -> Sequence[Tuple[int, int]]:
+    """The visits [lo, hi) that block s of ``splits`` runs, in block order:
+    contiguous, covering 0 .. n_visits - 1 once; empty where n_visits <
+    splits."""
+    if splits < 1 or n_visits < 0:
+        raise ValueError(f"splits {splits}, n_visits {n_visits}")
+    return [(s * n_visits // splits, (s + 1) * n_visits // splits) for s in range(splits)]
+
+
+def merge_visit_states(states: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Partial states of consecutive visit ranges, in range order, merged as
+    the visits update the state: a later range replaces it only where its t
+    (row 0) is strictly smaller, so a tie keeps the earlier range's winner."""
+    out = states[0]
+    for state in states[1:]:
+        out = torch.where(state[0] < out[0], state, out)
+    return out
+
+
+def split_visits_plain(visit_plain, n_visits: int, splits: int, **kwargs) -> torch.Tensor:
+    """The kernels' split schedule on the plain version ``visit_plain``
+    (``visit_vpu_plain`` or ``visit_mma_plain``): each block's range run from
+    its first visit, the states merged in range order."""
+    return merge_visit_states([visit_plain(n_visits=hi - lo, start=lo, **kwargs)
+                               for lo, hi in visit_ranges(n_visits, splits)])
+
+
+def fit_per_sm(device: torch.device, highest: Optional[bool] = None) -> int:
+    """Blocks that fit on one SM (the occupancy API): the scalar kernel for
+    ``highest`` None, else the tensor-core kernel."""
+    if highest is None:
+        fit = VPU_KERNEL.blocks_per_sm("aptd_mm_visit_vpu_blocks_per_sm", device)
+    else:
+        fit = MMA_KERNEL.blocks_per_sm("aptd_mm_visit_mma_blocks_per_sm", device, int(highest))
+    if fit < 1:
+        raise RuntimeError("no block of the visit kernel fits on an SM")
+    return fit
+
+
+def default_splits(device: torch.device, highest: Optional[bool] = None) -> int:
+    """S: the card's SMs times the blocks that fit on one."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * fit_per_sm(device, highest)
+
+
+def _splits(device, highest: Optional[bool], splits: Optional[int]) -> int:
+    if splits is None:
+        return default_splits(device, highest)
+    if splits < 1:
+        raise ValueError(f"splits {splits}")
+    return int(splits)
+
+
+def _counter(visit_counter: Optional[torch.Tensor], device) -> torch.Tensor:
+    if visit_counter is None:
+        return torch.zeros(1, dtype=torch.int32, device=device)
+    if (visit_counter.dtype != torch.int32 or visit_counter.numel() != 1
+            or visit_counter.device != device):
+        raise ValueError("visit_counter: one int32 on the inputs' device")
+    return visit_counter.zero_()
 
 
 def _checked(name: str, t: torch.Tensor, shape) -> torch.Tensor:
@@ -78,15 +154,17 @@ def _ray_vecs(rays: torch.Tensor):
 
 
 def visit_vpu_plain(rays: torch.Tensor, faces: torch.Tensor,
-                    n_visits: int = N_CLUSTERS) -> torch.Tensor:
+                    n_visits: int = N_CLUSTERS, start: int = 0) -> torch.Tensor:
     """Plain PyTorch version of ``visit_vpu``: (8, 1024) state rows t, point,
-    interpolated normal, material after ``min(n_visits, 64)`` visits."""
+    interpolated normal, material after the visits start, start + 1, ...,
+    ``min(n_visits, 64)`` of them (visit k fetches cluster k % 64)."""
     o, d = _ray_vecs(rays)
     o2, d2 = (Vec3(*(c[None] for c in v)) for v in (o, d))
     state = torch.zeros((8, rays.shape[1]), dtype=torch.float32, device=rays.device)
     state[0] = MISS
-    for k in range(min(n_visits, N_CLUSTERS)):
-        vb = faces[k * CLUSTER:(k + 1) * CLUSTER]
+    for k in range(start, start + min(n_visits, N_CLUSTERS)):
+        c = k % N_CLUSTERS
+        vb = faces[c * CLUSTER:(c + 1) * CLUSTER]
 
         def corner(c):
             return Vec3(*(vb[:, 3 * c + a, None] for a in range(3)))
@@ -111,22 +189,40 @@ def visit_vpu_plain(rays: torch.Tensor, faces: torch.Tensor,
     return state
 
 
-def visit_vpu(rays: torch.Tensor, faces: torch.Tensor,
-              n_visits: int = N_VISITS) -> torch.Tensor:
+def _card_inputs(rays: torch.Tensor, table: torch.Tensor, name: str) -> None:
+    if table.device != rays.device:
+        raise ValueError(f"rays and {name} lie on different devices")
+    if table.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel copies 16-byte pieces; the data must be "
+                         "16-byte aligned")
+
+
+def visit_vpu(rays: torch.Tensor, faces: torch.Tensor, n_visits: int = N_VISITS, *,
+              splits: Optional[int] = None,
+              visit_counter: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``n_visits`` scalar-arithmetic cluster visits of one 1024-ray tile.
     ``rays``: (8, 1024) rows ox oy oz dx dy dz _ _; ``faces``: (2048, 128).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    split over ``splits`` blocks (default ``default_splits``).
+    ``visit_counter`` (one int32), zeroed here, receives the visits
+    performed: the kernel's count on the card, the plain version's
+    ``min(n_visits, 64)`` on the CPU."""
     rays = _checked("rays", rays, (8, LANES))
     faces = _checked("faces", faces, (N_CLUSTERS * CLUSTER, TABLE_COLS))
     if rays.device.type == "cpu":
+        if visit_counter is not None:
+            _counter(visit_counter, rays.device).fill_(min(n_visits, N_CLUSTERS))
         return visit_vpu_plain(rays, faces, n_visits)
-    if faces.device != rays.device:
-        raise ValueError("rays and faces lie on different devices")
+    _card_inputs(rays, faces, "faces")
+    splits = _splits(rays.device, None, splits)
+    counter = _counter(visit_counter, rays.device)
+    partial = torch.empty((splits, 8, LANES), dtype=torch.float32, device=rays.device)
     out = torch.empty((8, LANES), dtype=torch.float32, device=rays.device)
     lib = VPU_KERNEL.lib()
     with torch.cuda.device(rays.device):
-        rc = lib.aptd_mm_visit_vpu(rays.data_ptr(), faces.data_ptr(), int(n_visits),
-                                   out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        rc = lib.aptd_mm_visit_vpu(rays.data_ptr(), faces.data_ptr(), int(n_visits), splits,
+                                   partial.data_ptr(), counter.data_ptr(), out.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
     check(rc, "scalar visit kernel")
     VPU_KERNEL.launches += 1
     return out
@@ -148,12 +244,14 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-def visit_mma_plain(rays: torch.Tensor, coeffs: torch.Tensor,
-                    n_visits: int = N_CLUSTERS, precision: str = "float32") -> torch.Tensor:
+def visit_mma_plain(rays: torch.Tensor, coeffs: torch.Tensor, n_visits: int = N_CLUSTERS,
+                    precision: str = "float32", start: int = 0) -> torch.Tensor:
     """Plain PyTorch version of ``visit_mma``: the product as a float32
-    ``@``; (8, 1024) rows t, face id, six zero rows.  ``precision`` "tf32"
-    rounds both operands to TF32 first, as the kernel does without
-    ``highest``; "float32" is what its ``highest`` mode keeps."""
+    ``@``; (8, 1024) rows t, face id, six zero rows, after the visits start,
+    start + 1, ..., ``min(n_visits, 64)`` of them (visit k takes block
+    k % 64).  ``precision`` "tf32" rounds both operands to TF32 first, as
+    the kernel does without ``highest``; "float32" is what its ``highest``
+    mode keeps."""
     if precision not in ("float32", "tf32"):
         raise ValueError(f"precision={precision!r}")
     feats = visit_features(rays)
@@ -162,8 +260,9 @@ def visit_mma_plain(rays: torch.Tensor, coeffs: torch.Tensor,
     state = torch.zeros((8, rays.shape[1]), dtype=torch.float32, device=rays.device)
     state[0] = MISS
     state[1] = -1.0
-    for k in range(min(n_visits, N_CLUSTERS)):
-        mm = coeffs[k].T @ feats                                  # (128, 1024)
+    for k in range(start, start + min(n_visits, N_CLUSTERS)):
+        c = k % N_CLUSTERS
+        mm = coeffs[c].T @ feats                                  # (128, 1024)
         den, un, wn, tn = mm[0:32], mm[32:64], mm[64:96], mm[96:128]
         hit = ((den >= _FLT_EPS) & (un >= 0.0) & (un <= den) & (wn >= 0.0)
                & (un + wn <= den) & (tn >= 0.0))
@@ -171,28 +270,36 @@ def visit_mma_plain(rays: torch.Tensor, coeffs: torch.Tensor,
         t_c, j = torch.min(t, dim=0)
         better = t_c < state[0]
         state[0] = torch.where(better, t_c, state[0])
-        state[1] = torch.where(better, (j + k * CLUSTER).to(torch.float32), state[1])
+        state[1] = torch.where(better, (j + c * CLUSTER).to(torch.float32), state[1])
     return state
 
 
 def visit_mma(rays: torch.Tensor, coeffs: torch.Tensor, n_visits: int = N_VISITS,
-              highest: bool = False) -> torch.Tensor:
+              highest: bool = False, *, splits: Optional[int] = None,
+              visit_counter: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``n_visits`` matrix-product cluster visits of one 1024-ray tile.
     ``coeffs``: (64, 16, 128); ``highest``: 3xTF32 instead of one TF32
     product.  CPU tensors take the plain version at the matching
-    precision; CUDA tensors launch the kernel."""
+    precision; CUDA tensors launch the kernel.  ``splits`` and
+    ``visit_counter`` as for ``visit_vpu``."""
     rays = _checked("rays", rays, (8, LANES))
     coeffs = _checked("coeffs", coeffs, (N_CLUSTERS, 16, 4 * CLUSTER))
+    highest = bool(highest)
     if rays.device.type == "cpu":
+        if visit_counter is not None:
+            _counter(visit_counter, rays.device).fill_(min(n_visits, N_CLUSTERS))
         return visit_mma_plain(rays, coeffs, n_visits,
                                "float32" if highest else "tf32")
-    if coeffs.device != rays.device:
-        raise ValueError("rays and coeffs lie on different devices")
+    _card_inputs(rays, coeffs, "coeffs")
+    splits = _splits(rays.device, highest, splits)
+    counter = _counter(visit_counter, rays.device)
+    partial = torch.empty((splits, 2, LANES), dtype=torch.float32, device=rays.device)
     out = torch.empty((8, LANES), dtype=torch.float32, device=rays.device)
     lib = MMA_KERNEL.lib()
     with torch.cuda.device(rays.device):
         rc = lib.aptd_mm_visit_mma(rays.data_ptr(), coeffs.data_ptr(), int(n_visits),
-                                   int(bool(highest)), out.data_ptr(),
+                                   int(highest), splits, partial.data_ptr(),
+                                   counter.data_ptr(), out.data_ptr(),
                                    torch.cuda.current_stream().cuda_stream)
     check(rc, "matrix-product visit kernel")
     MMA_KERNEL.launches += 1

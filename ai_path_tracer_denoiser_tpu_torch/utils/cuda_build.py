@@ -13,13 +13,14 @@ main path went through the kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -57,6 +58,7 @@ class CudaKernel:
         self._lock = threading.Lock()
         self.launches = 0
         self.build_log = ""
+        self._fit: Dict[tuple, int] = {}
 
     def library_path(self) -> str:
         h = hashlib.sha1()
@@ -101,6 +103,20 @@ class CudaKernel:
                 self._lib = lib
             return self._lib
 
+    def blocks_per_sm(self, entry: str, device, *args: int) -> int:
+        """Blocks that fit on one SM of ``device`` (the occupancy API), from
+        the library's C function ``entry(*args, int* out)``; asked once per
+        device and arguments."""
+        import torch
+        key = (entry, str(device), args)
+        if key not in self._fit:
+            out = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                check(getattr(self.lib(), entry)(*args, ctypes.byref(out)),
+                      f"{self.name} occupancy")
+            self._fit[key] = out.value
+        return self._fit[key]
+
 
 def build_all(kernels: Sequence[CudaKernel]) -> None:
     """Build every kernel's library, one nvcc per source, all at once."""
@@ -115,3 +131,43 @@ def check(rc: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def rebuilt(shipped: CudaKernel, source: str, name: str = "") -> CudaKernel:
+    """Another version of ``shipped``'s source (the same C interface) at the
+    path ``source``, built with ``shipped``'s flags, declarations and
+    headers, named ``name`` (default: the file's stem)."""
+    name = name or os.path.splitext(os.path.basename(source))[0]
+    return CudaKernel(name, os.path.abspath(source), declare=shipped._declare,
+                      headers=shipped.headers,
+                      extra_flags=shipped.flags[len(BASE_FLAGS):] + (f"-I{CSRC_DIR}",))
+
+
+def edited_build(shipped: CudaKernel, name: str,
+                 edits: Sequence[Tuple[str, str]]) -> CudaKernel:
+    """``shipped``'s source with text edits (each old text must occur
+    exactly once), written into the build directory and built as
+    ``rebuilt`` builds it."""
+    with open(shipped.source) as f:
+        text = f.read()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"{name}: {old!r} occurs {text.count(old)} times")
+        text = text.replace(old, new)
+    path = os.path.join(BUILD_DIR, "variants", f"{name}.cu")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+    return rebuilt(shipped, path, name)
+
+
+@contextlib.contextmanager
+def swapped(owner, attr: str, kernel: CudaKernel):
+    """``owner.attr``, the build a wrapper launches, set to ``kernel``
+    inside the block."""
+    saved = getattr(owner, attr)
+    setattr(owner, attr, kernel)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, saved)

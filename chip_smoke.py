@@ -38,9 +38,11 @@ and an unsorted frame of each mesh scene, with the tests a thread-per-ray
 warp would issue for them, the per-ray kernel held to its plain version on
 every call of those four frames and its builds at live-ray thresholds 1
 and 33 (each cluster tested one of its two ways) held to it; and the
-visit-cost probe
-(`tools/mm_feasibility.py`: the scalar and the tensor-core visit kernel
-against their plain versions, then microseconds per visit).  The conv
+visit-cost probe (`tools/mm_feasibility.py`: the scalar and the
+tensor-core visit kernel, each launch's visits split over the card,
+against their plain versions, one block against the split bit for bit,
+every launch's visit count, then device time and microseconds per visit,
+and one block's at fewer visits).  The conv
 kernels are checked on the frame's 28 shapes (bfloat16, float32 and batched
 input; the row-band kernel also on a zero-bordered input, odd and aligned
 Cin), both also at shapes the frame never reaches (Co = 202, 3 -> 3, ragged
@@ -92,11 +94,13 @@ TF32_FLOPS = 495e12
 IMPL_FRAMES = 2               # interactive frames per traversal and sort setting
 BENCH_ITERS = {"cornell_box": 64, "blob": 3, "statue": 2}
 PROBE_VISITS = 32768          # the visit-cost probe's own count
+PROBE_ONE_SM_VISITS = 2048    # visits of the one-block (one SM) launches timed beside it
 # K4 also built at these live-ray thresholds (mesh_kernel_v2p.K_THR): 1 tests
 # every visited cluster lane by ray, 33 ray by ray; each must equal K4
 K4_WITNESSES = (1, 33)
 STATUE_SLICE = 64000          # rays of a statue call held whole-plain past bounce 1
 OPS_VISIT_TEST = 12           # hit test + division per (face, ray) of the product visit
+OPS_EDGES = 6                 # v1 - v0, v2 - v0: per staged face, not per (face, ray)
 
 
 def require(cond, what):
@@ -1510,8 +1514,29 @@ def main():
                   "warp_live_clusters_mean": [float(w_.double().mean()) for w_ in per_warp]})
 
     # ---- 10f. the visit-cost probe: K9a and K9b ----
+    # Each launch splits the visits over the card (S blocks, merged in range
+    # order); every launch here also counts the visits its kernel ran.
+    probe_t0 = time.time()
     p_rays, p_faces, p_coeffs = mm_feasibility.probe_inputs(0, dev)
-    vpu_got = mm_feasibility.visit_vpu(p_rays, p_faces, PROBE_VISITS)
+    visits_run = torch.zeros(1, dtype=torch.int32, device=dev)
+    probe_modes = {"scalar": None, "tf32": False, "3xtf32": True}
+
+    def probe_run(mode, n_visits, **shape):
+        """One launch of ``mode``'s kernel through its wrapper."""
+        highest = probe_modes[mode]
+        if highest is None:
+            return mm_feasibility.visit_vpu(p_rays, p_faces, n_visits, **shape)
+        return mm_feasibility.visit_mma(p_rays, p_coeffs, n_visits, highest, **shape)
+
+    def probe_launch(mode, n_visits, **shape):
+        """``probe_run``, failing unless the kernel ran every visit."""
+        out = probe_run(mode, n_visits, visit_counter=visits_run, **shape)
+        require(int(visits_run.item()) == n_visits,
+                f"{mode} kernel ran {int(visits_run.item())} of {n_visits} visits")
+        return out
+
+    probe_splits = {m: mm_feasibility.default_splits(dev, h) for m, h in probe_modes.items()}
+    vpu_got = probe_launch("scalar", PROBE_VISITS)
     vpu_want, vpu_plain_ms = wall_ms(lambda: mm_feasibility.visit_vpu_plain(p_rays, p_faces))
     vpu_err = max_abs_diff([vpu_got], [vpu_want])
     require(torch.equal(vpu_got, vpu_want) and int((vpu_want[0] < 1e38).sum()) > 500,
@@ -1523,8 +1548,8 @@ def main():
         return int(bad.sum()), int((got[1] != want[1]).sum())
 
     mma = {}
-    for mode, highest, precision in (("tf32", False, "tf32"), ("3xtf32", True, "float32")):
-        got = mm_feasibility.visit_mma(p_rays, p_coeffs, PROBE_VISITS, highest)
+    for mode, precision in (("tf32", "tf32"), ("3xtf32", "float32")):
+        got = probe_launch(mode, PROBE_VISITS)
         want, plain_ms = wall_ms(lambda: mm_feasibility.visit_mma_plain(
             p_rays, p_coeffs, precision=precision))
         bad_t, bad_face = visit_mismatches(got, want)
@@ -1533,12 +1558,21 @@ def main():
                      "hits": int((want[0] < 1e38).sum())}
         require(bad_t + bad_face <= 10 and bool((got[2:] == 0).all()) and mma[mode]["hits"] > 500,
                 f"tensor-core visit kernel ({mode}) vs plain: {mma[mode]}")
+    # one block on one SM against the shipped split, bit for bit
+    for mode in probe_modes:
+        for n_visits in (200, PROBE_VISITS):
+            require(torch.equal(probe_launch(mode, n_visits, splits=1),
+                                probe_launch(mode, n_visits)),
+                    f"{mode} kernel: one block and {probe_splits[mode]} blocks differ at "
+                    f"{n_visits} visits")
     # what one TF32 product loses against float32: a finding, not a check
-    tf32_vs_f32 = visit_mismatches(mm_feasibility.visit_mma(p_rays, p_coeffs, 64, False),
+    tf32_vs_f32 = visit_mismatches(probe_launch("tf32", 64),
                                    mm_feasibility.visit_mma_plain(p_rays, p_coeffs))
     emit({"phase": "mm_feasibility_check", "rays": 1024, "visits": PROBE_VISITS,
           "scalar_kernel_bitwise_equal": True, "scalar_hits": int((vpu_want[0] < 1e38).sum()),
-          "tensor_core_kernel": mma,
+          "tensor_core_kernel": mma, "splits": probe_splits,
+          "one_block_equals_split_bitwise_at_visits": [200, PROBE_VISITS],
+          "every_launch_ran_every_visit": True,
           "tf32_kernel_vs_float32_plain": {"t_mismatches": tf32_vs_f32[0],
                                            "face_mismatches": tf32_vs_f32[1]},
           "tolerance": "scalar kernel: the (8, 1024) state equal bit for bit.  Tensor-core "
@@ -1546,7 +1580,8 @@ def main():
                        "but at most 10 of 1024 rays (a comparison next to its threshold may "
                        "fall the other way); the TF32 mode against the plain version with "
                        "both operands rounded to TF32, the 3xTF32 mode against the float32 "
-                       "plain version.  The winning t = tn / den has tn close to 0 by "
+                       "plain version.  Each kernel at one block and at the shipped split: "
+                       "equal bit for bit.  The winning t = tn / den has tn close to 0 by "
                        "cancellation, so one TF32 product against float32 is reported, "
                        "not held to a bar"})
     reset_counts()
@@ -1554,25 +1589,37 @@ def main():
     probe_counts = {k: v for k, v in launch_counts().items() if v}
     # timed(): one warm-up call + 5; the tensor-core kernel in both modes
     require(probe_counts == {"mm_visit_vpu": 6, "mm_visit_mma": 12}, f"probe launches {probe_counts}")
-    vpu_ms = time_ms(lambda: mm_feasibility.visit_vpu(p_rays, p_faces, PROBE_VISITS), 3, warmup=1)
-    mma_ms = {mode: time_ms(lambda h=h: mm_feasibility.visit_mma(p_rays, p_coeffs, PROBE_VISITS, h),
-                            3, warmup=1) for mode, h in (("tf32", False), ("3xtf32", True))}
+    probe_ms, probe_device_ms, one_sm = {}, {}, {}
+    for mode in probe_modes:
+        run = (lambda m=mode: probe_run(m, PROBE_VISITS))
+        probe_ms[mode] = time_ms(run, 3, warmup=1)
+        probe_device_ms[mode] = graph_ms(run, 3)
+        one_sm[mode] = graph_ms(lambda m=mode: probe_run(m, PROBE_ONE_SM_VISITS, splits=1), 1)
     io_bytes = 4 * (2 * 8 * 1024)
+    # the face tests without their edges, which are formed once per staged face
     vpu_bound = bound_ms(io_bytes + 4 * p_faces.numel(),
-                         PROBE_VISITS * 1024 * 32 * OPS_TRIANGLE, FP32_FLOPS)
+                         PROBE_VISITS * 32 * (1024 * (OPS_TRIANGLE - OPS_EDGES) + OPS_EDGES),
+                         FP32_FLOPS)
     mm_flops = PROBE_VISITS * 2 * 128 * 16 * 1024
     test_ops = PROBE_VISITS * 32 * 1024 * OPS_VISIT_TEST
+    # 3xTF32 is three TF32 products; the tensor cores and the float32 pipes
+    # run at once, so the least time is the larger of the two, not their sum
     mma_bound = {mode: max((io_bytes + 4 * p_coeffs.numel()) / HBM_BPS,
-                           mm_flops / peak + test_ops / FP32_FLOPS) * 1e3
-                 for mode, peak in (("tf32", TF32_FLOPS), ("3xtf32", FP32_FLOPS))}
+                           products * mm_flops / TF32_FLOPS, test_ops / FP32_FLOPS) * 1e3
+                 for mode, products in (("tf32", 1), ("3xtf32", 3))}
     emit({"phase": "mm_feasibility", "card": smi, "visits": PROBE_VISITS,
           "launches_by_the_tool": probe_counts, "tool_results": probe,
-          "us_per_visit": {"scalar": vpu_ms / PROBE_VISITS * 1e3,
-                           **{m: v / PROBE_VISITS * 1e3 for m, v in mma_ms.items()}},
-          "kernel_ms": {"scalar": vpu_ms, **mma_ms},
+          "splits": probe_splits,
+          "us_per_visit": {m: v / PROBE_VISITS * 1e3 for m, v in probe_device_ms.items()},
+          "device_ms": probe_device_ms, "events_ms": probe_ms,
+          "one_sm": {"visits": PROBE_ONE_SM_VISITS, "device_ms": one_sm,
+                     "us_per_visit": {m: v / PROBE_ONE_SM_VISITS * 1e3
+                                      for m, v in one_sm.items()}},
           "bound_ms": {"scalar": vpu_bound[0], **mma_bound},
-          "bound_by": "operations", "one_block": "each launch is one block on one of 132 SMs; "
-                                                 "the bound is the whole card's"})
+          "bound_by": "operations", "phase_seconds": time.time() - probe_t0,
+          "timing": "device_ms: launches captured in a CUDA graph and replayed; events_ms: "
+                    "CUDA events around launches through the wrapper back to back; "
+                    "us_per_visit from device_ms"})
 
     # ---- 11. the card's busy time in one train step (profiler), last ----
     step_busy = busy_ms(lambda: trainer.train_step(state, fixed_x, fixed_y, topt, mopt))
@@ -1648,18 +1695,24 @@ def main():
         {"name": "mm_visit_vpu", "route": "cuda",
          "source": "ai_path_tracer_denoiser_tpu_torch/csrc/mm_visit_vpu.cu",
          "replaces": "tools/exp_mm_feasibility.py:180", "launches": probe_counts["mm_visit_vpu"],
-         "max_abs_err": vpu_err, "ms": vpu_ms, "plain_ms": vpu_plain_ms,
+         "max_abs_err": vpu_err, "ms": probe_ms["scalar"],
+         "device_ms": probe_device_ms["scalar"], "plain_ms": vpu_plain_ms,
          "bound_ms": vpu_bound[0], "bound_by": vpu_bound[1], "library_ms": None,
-         "visits_per_launch": PROBE_VISITS, "plain_visits": 64},
+         "visits_per_launch": PROBE_VISITS, "plain_visits": 64,
+         "splits": probe_splits["scalar"]},
         {"name": "mm_visit_mma", "route": "cuda",
          "source": "ai_path_tracer_denoiser_tpu_torch/csrc/mm_visit_mma.cu",
          "replaces": "tools/exp_mm_feasibility.py:194", "launches": probe_counts["mm_visit_mma"],
-         "max_abs_err": mma["tf32"]["max_abs_err"], "ms": mma_ms["tf32"],
+         "max_abs_err": mma["tf32"]["max_abs_err"], "ms": probe_ms["tf32"],
+         "device_ms": probe_device_ms["tf32"],
          "plain_ms": mma["tf32"]["plain_ms"], "bound_ms": mma_bound["tf32"],
          "bound_by": "operations", "library_ms": None,
          "visits_per_launch": PROBE_VISITS, "plain_visits": 64,
-         "ms_3xtf32": mma_ms["3xtf32"], "bound_ms_3xtf32": mma_bound["3xtf32"],
-         "max_abs_err_3xtf32": mma["3xtf32"]["max_abs_err"]},
+         "splits": probe_splits["tf32"],
+         "ms_3xtf32": probe_ms["3xtf32"], "device_ms_3xtf32": probe_device_ms["3xtf32"],
+         "bound_ms_3xtf32": mma_bound["3xtf32"],
+         "max_abs_err_3xtf32": mma["3xtf32"]["max_abs_err"],
+         "splits_3xtf32": probe_splits["3xtf32"]},
     ]}
     require(len(summary["kernels"]) == 10, "ten kernels in the summary")
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:

@@ -44,6 +44,7 @@ from ai_path_tracer_denoiser_tpu_torch.render import (assemble_gbuffer, cuda_bac
 from ai_path_tracer_denoiser_tpu_torch.scene import derive_camera, load_scene
 from ai_path_tracer_denoiser_tpu_torch.tools import mm_feasibility
 from ai_path_tracer_denoiser_tpu_torch.utils.device import resolve_device
+from test_torch_render_k1 import crowded_cornell
 
 torch.set_num_threads(2)
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -843,6 +844,67 @@ def test_visit_kernels_match_plain_on_card(cuda_device):
         assert (got[2:] == 0).all() and (want[0] < 1e38).sum() > 500
     with pytest.raises(ValueError, match="different devices"):
         mm_feasibility.visit_vpu(rays, faces.cpu(), 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_visits", [64, 200, 1000])
+def test_k9a_split_over_the_card_equals_plain_on_card(cuda_device, n_visits):
+    """Every split (one block, 7, the shipped S) gives the plain version's
+    state bit for bit and runs every visit."""
+    rays, faces, _ = mm_feasibility.probe_inputs(0, cuda_device)
+    want = mm_feasibility.visit_vpu_plain(rays, faces, n_visits)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    for splits in (1, 7, mm_feasibility.default_splits(cuda_device)):
+        got = mm_feasibility.visit_vpu(rays, faces, n_visits, splits=splits,
+                                       visit_counter=counter)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), splits
+        assert int(counter) == n_visits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("highest", [False, True])
+def test_k9b_split_over_the_card_is_bitwise_one_block_on_card(cuda_device, highest):
+    """The tensor-core visit at 7 blocks and the shipped S equals one block
+    bit for bit, meets the bar against its plain version and runs every
+    visit."""
+    rays, _, coeffs = mm_feasibility.probe_inputs(0, cuda_device)
+    want = mm_feasibility.visit_mma_plain(rays, coeffs,
+                                          precision="float32" if highest else "tf32")
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    for n_visits in (200, 1000):
+        one = mm_feasibility.visit_mma(rays, coeffs, n_visits, highest, splits=1,
+                                       visit_counter=counter)
+        torch.cuda.synchronize()
+        assert int(counter) == n_visits
+        bad = (one[0] - want[0]).abs() > 1e-5 * want[0].abs() + 1e-5
+        assert int(bad.sum()) + int((one[1] != want[1]).sum()) <= 10
+        assert (one[2:] == 0).all() and (want[0] < 1e38).sum() > 500
+        for splits in (7, mm_feasibility.default_splits(cuda_device, highest)):
+            got = mm_feasibility.visit_mma(rays, coeffs, n_visits, highest, splits=splits,
+                                           visit_counter=counter)
+            torch.cuda.synchronize()
+            assert torch.equal(got, one), (n_visits, splits)
+            assert int(counter) == n_visits
+
+
+@pytest.mark.cuda
+def test_scene_past_the_kernel_home_renders_plain_on_card(cuda_device, tmp_path):
+    """"auto" routes a scene whose packed size exceeds the megakernel's
+    shared memory to the plain wavefront on the card (no launch), and a
+    forced "pallas" raises the ineligible error."""
+    scene = load_scene(crowded_cornell(tmp_path / "crowded.txt"), device=cuda_device)
+    c = scene.camera
+    scene = dataclasses.replace(scene, camera=derive_camera(
+        (RES, RES), 45.0, c.position.numpy(), c.look_at.numpy(), c.up.numpy()))
+    launches = cuda_backend.KERNEL.launches
+    img, gbuf, _ = render(scene, RenderOptions(), num_iterations=1)
+    want_img, want_gbuf, _ = render(scene, RenderOptions(backend="xla"), num_iterations=1)
+    torch.cuda.synchronize()
+    assert cuda_backend.KERNEL.launches == launches
+    assert torch.equal(img, want_img) and torch.equal(gbuf, want_gbuf)
+    with pytest.raises(ValueError, match="ineligible"):
+        render(scene, RenderOptions(backend="pallas"), num_iterations=1)
 
 
 @pytest.mark.cuda

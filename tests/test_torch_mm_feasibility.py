@@ -18,6 +18,10 @@ visit, whose numerator is a cancelled sum of ten products); such rays must
 be at least 97% of all.  The TF32 plain version is held to its definition
 (operands rounded to 10 mantissa bits) instead: JAX's DEFAULT precision is
 plain float32 on the CPU.
+
+The split schedule the kernels run on the card (contiguous visit ranges,
+partial states merged in range order) is held to the sequential plain
+version bit for bit.
 """
 import importlib.util
 import pathlib
@@ -167,6 +171,64 @@ def test_wrappers_reject_other_shapes(inputs, bad):
         mf.visit_vpu(rays, faces, 64)
     with pytest.raises(ValueError, match="expected float32"):
         mf.visit_mma(rays, coeffs, 64)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 7, 264])
+@pytest.mark.parametrize("n_visits", [64, 200, 1000, 5])
+def test_split_schedule_equals_the_sequential_state(inputs, n_visits, splits):
+    """The kernels' schedule (each block's visit range run from its first
+    visit, the partial states merged in range order by a strict ``<``) is
+    the sequential state bit for bit, with uneven and empty ranges."""
+    rays, faces, coeffs = inputs
+    ranges = mf.visit_ranges(n_visits, splits)
+    assert len(ranges) == splits and ranges[0][0] == 0 and ranges[-1][1] == n_visits
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    sizes = [hi - lo for lo, hi in ranges]
+    assert max(sizes) - min(sizes) <= 1 and (min(sizes) == 0) == (n_visits < splits)
+    got = mf.split_visits_plain(mf.visit_vpu_plain, n_visits, splits, rays=rays, faces=faces)
+    assert torch.equal(got, mf.visit_vpu_plain(rays, faces, n_visits))
+    for precision in ("float32", "tf32"):
+        got = mf.split_visits_plain(mf.visit_mma_plain, n_visits, splits, rays=rays,
+                                    coeffs=coeffs, precision=precision)
+        assert torch.equal(got, mf.visit_mma_plain(rays, coeffs, n_visits, precision))
+
+
+def test_a_tie_across_ranges_keeps_the_earlier_winner(inputs):
+    """Cluster 40 is cluster 10 again (another material; coefficient block
+    40 is block 10): ranges [0, 32) and [32, 64) find the same t, and the
+    merge keeps range 0's winner, as the sequential visits do; merged the
+    other way round the later one would win."""
+    rays, faces, coeffs = inputs
+    faces, coeffs = faces.clone(), coeffs.clone()
+    faces[40 * 32:41 * 32] = faces[10 * 32:11 * 32]
+    faces[40 * 32:41 * 32, 18] += 1.0
+    coeffs[40] = coeffs[10]
+    for plain, kwargs, from_10 in (
+            (mf.visit_vpu_plain, {"faces": faces},
+             lambda st: torch.isin(st[7], faces[10 * 32:11 * 32, 18])),
+            (mf.visit_mma_plain, {"coeffs": coeffs},
+             lambda st: (st[1] >= 10 * 32) & (st[1] < 11 * 32))):
+        want = plain(rays=rays, n_visits=64, **kwargs)
+        parts = [plain(rays=rays, n_visits=hi - lo, start=lo, **kwargs)
+                 for lo, hi in mf.visit_ranges(64, 2)]
+        tied = parts[0][0] == parts[1][0]
+        won = from_10(parts[0]) & tied & (parts[0][0] < 1e38)
+        assert won.sum() > 0 and torch.equal(mf.merge_visit_states(parts), want)
+        assert from_10(want)[won].all()
+        assert not torch.equal(mf.merge_visit_states(parts[::-1])[:, won], want[:, won])
+
+
+def test_visit_counter_on_the_cpu_is_the_plain_versions_count(inputs):
+    rays, faces, coeffs = inputs
+    counter = torch.full((1,), 7, dtype=torch.int32)
+    mf.visit_vpu(rays, faces, 200, visit_counter=counter)
+    assert int(counter) == 64
+    mf.visit_mma(rays, coeffs, 20, True, visit_counter=counter)
+    assert int(counter) == 20
+    with pytest.raises(ValueError, match="visit_counter"):
+        mf.visit_vpu(rays, faces, 64, visit_counter=torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="splits"):
+        mf.visit_ranges(64, 0)
 
 
 def test_sort_and_gather_benches_run_small():

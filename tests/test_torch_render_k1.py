@@ -4,19 +4,21 @@
 bounce loop) against the plain renderer's own count; ``lane_efficiency``
 against a count by hand; the persistent launch's chunk plan; the
 operation count of ``render_work`` against a count by hand; the scene's
-home in shared memory.  The kernel itself is held to its plain version and
-to its one-pixel-per-thread witness on the card (tests/test_torch_cuda.py);
-the renderer against the JAX one in tests/test_torch_render.py.  Integer
+home in shared memory and the routing of a scene past it.  The kernel
+itself is held to its plain version and to its one-pixel-per-thread
+witness on the card (tests/test_torch_cuda.py); the renderer against the
+JAX one in tests/test_torch_render.py.  Integer
 counts are compared exactly.  64x64 fixtures and smaller.
 """
 import dataclasses
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
 from ai_path_tracer_denoiser_tpu_torch.config import RenderOptions
-from ai_path_tracer_denoiser_tpu_torch.render import cuda_backend, init_render_state
+from ai_path_tracer_denoiser_tpu_torch.render import cuda_backend, init_render_state, render
 from ai_path_tracer_denoiser_tpu_torch.scene import derive_camera, load_scene
 
 torch.set_num_threads(2)
@@ -140,6 +142,36 @@ def test_a_scene_too_large_for_the_kernel_home_raises():
     floats, ints = cuda_backend.pack_scene(scene)                    # the real one fits
     assert 4 * (floats.numel() + ints.numel()) == cuda_backend.scene_home_bytes(
         scene.geoms.count, scene.materials.count, scene.mesh.num_faces)
+
+
+def crowded_cornell(path, spheres=1200):
+    """scenes/cornell_box.txt plus ``spheres`` small spheres, written to ``path``."""
+    rng = np.random.default_rng(7)
+    blocks = [f"OBJECT {7 + k}\nsphere\nmaterial {k % 4 + 1}\n"
+              f"TRANS {x:.3f} {y:.3f} {z:.3f}\nROTAT 0 0 0\nSCALE .1 .1 .1\n"
+              for k, (x, y, z) in enumerate(rng.uniform((-4, 1, -4), (4, 9, 4), (spheres, 3)))]
+    path.write_text((REPO / "scenes" / "cornell_box.txt").read_text() + "\n"
+                    + "\n".join(blocks))
+    return str(path)
+
+
+def test_a_scene_past_the_kernel_home_takes_the_plain_wavefront(tmp_path):
+    """Routing by eligibility: a packed scene larger than a block's shared
+    memory is not the megakernel's, so "auto" takes the plain wavefront and
+    a forced "pallas" raises the ineligible error (on the CPU too)."""
+    scene = load_scene(crowded_cornell(tmp_path / "crowded.txt"), device="cpu")
+    c = scene.camera
+    scene = dataclasses.replace(scene, camera=derive_camera(
+        (64, 64), 45.0, c.position.numpy(), c.look_at.numpy(), c.up.numpy()))
+    assert scene.geoms.count == 1207
+    assert cuda_backend.scene_home_bytes(scene.geoms.count, scene.materials.count,
+                                         scene.mesh.num_faces) > cuda_backend.SCENE_HOME_BYTES
+    assert not cuda_backend.pallas_eligible(scene, RenderOptions())
+    with pytest.raises(ValueError, match="ineligible.*shared memory"):
+        render(scene, RenderOptions(backend="pallas"), num_iterations=1)
+    img, gbuf, state = render(scene, RenderOptions(), num_iterations=1)
+    assert state.iteration == 1 and torch.isfinite(gbuf).all() and img.shape == (64, 64, 3)
+    assert cuda_backend.pallas_eligible(_scene("cornell_box.txt", 64), RenderOptions())
 
 
 def test_launch_megakernel_does_not_take_cpu_tensors():
