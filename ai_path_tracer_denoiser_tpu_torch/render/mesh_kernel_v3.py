@@ -11,7 +11,9 @@ minimum entry distance over the subtile (+inf where no ray is live), sorts
 the 8 with a 19-comparator network (``_NET8``) and visits them nearest
 first, so that a near hit tightens the running t before the occluded
 siblings are tested again.  A cluster is tested once more against the
-running t right before its 32 face tests.
+running t right before its 32 face tests; a cluster that passes is
+visited, and ``visit_counter`` receives the number of (subtile, cluster)
+visits.
 
 The visiting order is not the face order, so the merge carries the dense
 scan's tie-break itself: a cluster's first minimal hit wins iff t < t_run,
@@ -19,8 +21,13 @@ or t == t_run, the cluster's index is below the winner's and t is finite.
 "No winner yet" is cluster -1: a tie against the ``t_cull`` seed loses, as
 the scene merge needs (it takes the mesh only on strictly smaller t).
 
-On CUDA tensors it launches csrc/mesh_bvh_v3.cu; on CPU tensors it runs the
-plain version below, the same walk subtile by subtile.
+On CUDA tensors it launches csrc/mesh_bvh_v3.cu (persistent blocks of 128
+threads, one subtile at a time; only the rays live in a visited cluster
+test its faces, ray by ray over the block's warps; faces from the packed
+table ``mesh_kernel_v2p.packed_faces``; the root box from
+``cached_root_box``).
+On CPU tensors it runs the plain version below, the same walk subtile by
+subtile with the same visits.
 """
 from __future__ import annotations
 
@@ -32,7 +39,9 @@ import torch
 from ..ops.bvh import FANOUT, MeshBVH
 from ..ops.vec3 import Vec3
 from ..utils.cuda_build import CudaKernel, check
-from .mesh_kernel import TileState, _concat_tiles
+from ..utils.derived_cache import DerivedCache
+from .mesh_kernel import (TileState, _concat_tiles, _full_cull, edges_ptr, set_visits,
+                          tile_counters, tile_states)
 from .mesh_kernel_v2p import (_check_bvh, _slab_entry, hit_buffers, hit_planes, ray_planes,
                               table_ptrs)
 
@@ -45,14 +54,15 @@ _NET8 = ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
          (2, 4), (3, 5), (3, 4))
 
 
+
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.aptd_mesh_bvh_v3.restype = i
-    lib.aptd_mesh_bvh_v3.argtypes = [p] * 7 + [i] + [p] * 5 + [i] * 4 + [p] * 3
+    lib.aptd_mesh_bvh_v3.argtypes = [p] * 7 + [i] + [p] * 6 + [i] * 4 + [p] * 5
 
 
 KERNEL = CudaKernel("mesh_bvh_v3", "mesh_bvh_v3.cu", extra_flags=("-fmad=false",),
-                    declare=_declare, headers=("mesh_common.cuh",))
+                    declare=_declare, headers=("mesh_common.cuh", "mesh_tile.cuh"))
 
 
 def sort8(vals: Sequence[float]) -> Tuple[List[float], List[int]]:
@@ -75,6 +85,15 @@ def root_box(bvh: MeshBVH) -> torch.Tensor:
                       hr.new_zeros(2)])
 
 
+_ROOTS = DerivedCache(8)
+
+
+def cached_root_box(bvh: MeshBVH) -> torch.Tensor:
+    """``root_box(bvh)`` on the tables' device, built once per hyper table
+    (again after an in-place change to it)."""
+    return _ROOTS.get(bvh.hyper_bounds, (bvh.n_hypers_real,), lambda: root_box(bvh))
+
+
 def _front_to_back(st: TileState, table: torch.Tensor, base: int, n_rows: int):
     """Children base .. base + 7 of a level that have a live ray, nearest
     first by the subtile's minimum entry distance."""
@@ -90,18 +109,16 @@ def _front_to_back(st: TileState, table: torch.Tensor, base: int, n_rows: int):
 
 
 def mesh_intersect_bvh_v3_plain(bvh: MeshBVH, o: Vec3, d: Vec3,
-                                t_cull: Optional[torch.Tensor] = None
+                                t_cull: Optional[torch.Tensor] = None,
+                                visit_counter: Optional[torch.Tensor] = None
                                 ) -> Tuple[torch.Tensor, Vec3, Vec3, torch.Tensor]:
     """The kernel's plain PyTorch version: per subtile of 128 rays the
-    front-to-back walk with the cluster-index tie-break."""
-    n = o.x.shape[0]
-    if t_cull is None:
-        t_cull = torch.full((n,), _INF, dtype=torch.float32, device=o.x.device)
-    root = root_box(bvh)[None]
-    parts = []
-    for lo in range(0, n, LANES):
-        sl = slice(lo, lo + LANES)
-        st = TileState(bvh, Vec3(*(c[sl] for c in o)), Vec3(*(c[sl] for c in d)), t_cull[sl])
+    front-to-back walk with the cluster-index tie-break.  ``visit_counter``
+    (one int32) receives the visits, summed over the subtiles."""
+    t_cull = _full_cull(o, t_cull)
+    root = cached_root_box(bvh)[None]
+    parts, visits = [], 0
+    for st in tile_states(bvh, o, d, t_cull, LANES):
         cluster = torch.full(st.t.shape, -1, dtype=torch.int64, device=st.t.device)
         if st.live(root).any():
             for hbase in range(0, bvh.n_hypers_real, FANOUT):
@@ -113,40 +130,42 @@ def mesh_intersect_bvh_v3_plain(bvh: MeshBVH, o: Vec3, d: Vec3,
                             # an earlier sibling's hit may have culled it since
                             if not st.live(bvh.cluster_bounds[k:k + 1]).any():
                                 continue
+                            visits += 1
                             t, u, w, face = st.cluster_hit(k)
                             better = (t < st.t) | ((t == st.t) & (k < cluster) & (t < _INF))
                             st.merge(better, t, u, w, face)
                             cluster = torch.where(better, k, cluster)
         parts.append(st.result())
+    set_visits(visit_counter, visits, t_cull.device)
     return _concat_tiles(parts, o.x)
 
 
 def mesh_intersect_bvh_v3(bvh: MeshBVH, o: Vec3, d: Vec3,
-                          t_cull: Optional[torch.Tensor] = None
+                          t_cull: Optional[torch.Tensor] = None,
+                          visit_counter: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, Vec3, Vec3, torch.Tensor]:
     """Closest-hit query through the hierarchy, front to back per subtile of
-    128 rays.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    128 rays; ``visit_counter`` (one int32 on the rays' device) receives the
+    (subtile, cluster) visits.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     _check_bvh(bvh)
     n = o.x.shape[0]
-    if t_cull is None:
-        t_cull = torch.full((n,), _INF, dtype=torch.float32, device=o.x.device)
+    t_cull = _full_cull(o, t_cull)
     if t_cull.device.type == "cpu":
-        return mesh_intersect_bvh_v3_plain(bvh, o, d, t_cull)
+        return mesh_intersect_bvh_v3_plain(bvh, o, d, t_cull, visit_counter)
     dev = t_cull.device
     planes = ray_planes(o, d, t_cull)
-    tables = table_ptrs(bvh, dev)
-    if tables[0] % 16:
-        raise ValueError("the face table must start on a 16-byte boundary: the "
-                         "kernel copies whole clusters in 16-byte pieces")
-    root = root_box(bvh).contiguous()
+    faces, *bounds = table_ptrs(bvh, dev)
+    edges = edges_ptr(bvh, dev)
+    root = cached_root_box(bvh)
     out, mat = hit_buffers(n, dev)
     lib = KERNEL.lib()
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
         rc = lib.aptd_mesh_bvh_v3(
-            *(p.data_ptr() for p in planes), n, *tables, root.data_ptr(), bvh.num_faces,
-            bvh.n_clusters_real, bvh.n_supers_real, bvh.n_hypers_real,
-            out.data_ptr(), mat.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            *(p.data_ptr() for p in planes), n, faces, edges, *bounds, root.data_ptr(),
+            bvh.num_faces, bvh.n_clusters_real, bvh.n_supers_real, bvh.n_hypers_real,
+            out.data_ptr(), mat.data_ptr(), *tile_counters(dev, stream, visit_counter), stream)
     check(rc, "front-to-back mesh BVH kernel")
     KERNEL.launches += 1
     return hit_planes(out, mat)

@@ -30,15 +30,18 @@ and bit for bit, and the pair kernel's fast reciprocal against IEEE division
 on every float it is used for.  The mesh-traversal experiment path: the
 tile-gated and the front-to-back traversal kernels (`--mesh-kernel-impl v2`
 and `v3`) on those same recorded calls against the dense scan and the
-per-ray kernel, on a call with coincident faces in different clusters, and
-through `interactive` (frames equal to the per-ray traversal's bit for bit,
-8 launches per frame) and `bench`; `render` with material sort, first-bounce
+per-ray kernel, and on two whole-tile slices of each call against their
+own plain walks, output and visits (the clusters each tile ran face tests
+for), on a call with coincident faces in different clusters, and through
+`interactive` (frames equal to the per-ray traversal's bit for bit, 8
+launches per frame) and `bench`; `render` with material sort, first-bounce
 cache and motion blur; the three traversals timed side by side on a sorted
-and an unsorted frame of each mesh scene, with the tests a thread-per-ray
-warp would issue for them, the per-ray kernel held to its plain version on
-every call of those four frames and its builds at live-ray thresholds 1
-and 33 (each cluster tested one of its two ways) held to it; and the
-visit-cost probe (`tools/mm_feasibility.py`: the scalar and the
+and an unsorted frame of each mesh scene (events and device time, visits
+per frame), with the tests a thread-per-ray warp would issue for them, the
+per-ray kernel held to its plain version and to its builds at live-ray
+thresholds 1 and 33 (each cluster tested one of its two ways), and the two
+tile kernels to the per-ray kernel, on every call of those four frames;
+and the visit-cost probe (`tools/mm_feasibility.py`: the scalar and the
 tensor-core visit kernel, each launch's visits split over the card,
 against their plain versions, one block against the split bit for bit,
 every launch's visit count, then device time and microseconds per visit,
@@ -98,6 +101,7 @@ PROBE_ONE_SM_VISITS = 2048    # visits of the one-block (one SM) launches timed 
 # K4 also built at these live-ray thresholds (mesh_kernel_v2p.K_THR): 1 tests
 # every visited cluster lane by ray, 33 ray by ray; each must equal K4
 K4_WITNESSES = (1, 33)
+VISIT_SLICE = 2048            # rays of each whole-tile slice a tile kernel's visits are held on
 STATUE_SLICE = 64000          # rays of a statue call held whole-plain past bounce 1
 OPS_VISIT_TEST = 12           # hit test + division per (face, ray) of the product visit
 OPS_EDGES = 6                 # v1 - v0, v2 - v0: per staged face, not per (face, ray)
@@ -1009,37 +1013,66 @@ def main():
     def all_equal(got, want):
         return all(torch.equal(a, b) for a, b in zip(got, want))
 
+    def counted(fn):
+        """(result, visits) of ``fn(visit_counter)``."""
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        out = fn(counter)
+        return out, int(counter.item())
+
     def check_traversals(where, bvh, o, d, tc, want, k4):
         """K7 and K8 on one whole call against the dense scan ``want`` and the
-        per-ray kernel's output ``k4``, and on two 512-ray slices against
-        their own plain versions (the tile walks); one JSON line each."""
+        per-ray kernel's output ``k4``; on two slices of VISIT_SLICE rays
+        that start on a whole 1024-ray tile, the whole call's output against
+        the kernel's own plain version (the tile walk) on the slice, and the
+        kernel launched on the slice itself against that walk, output and
+        visits (the plain walk on the card's tensors); one JSON line each."""
         n = tc.shape[0]
         got = traversals(bvh, o, d, tc)
-        slices = [slice(0, 512), slice(n // 2, n // 2 + 512)]
-        own = {"mesh_bvh_v2": lambda sl, lanes: mesh_kernel.mesh_intersect_bvh_plain(
-                   bvh, *subset((o, d, tc), sl), lanes),
-               "mesh_bvh_v3": lambda sl, lanes: mesh_kernel_v3.mesh_intersect_bvh_v3_plain(
-                   bvh, *subset((o, d, tc), sl))}
+        slices = [slice(lo, lo + VISIT_SLICE) for lo in (0, n // 2 // 1024 * 1024)]
+        own = {"mesh_bvh_v2": lambda sl, lanes, **kw: mesh_kernel.mesh_intersect_bvh_plain(
+                   bvh, *subset((o, d, tc), sl), lanes, **kw),
+               "mesh_bvh_v3": lambda sl, lanes, **kw: mesh_kernel_v3.mesh_intersect_bvh_v3_plain(
+                   bvh, *subset((o, d, tc), sl), **kw)}
+        kern = {"mesh_bvh_v2": lambda sl, lanes, **kw: mesh_kernel.mesh_intersect_bvh(
+                    bvh, *subset((o, d, tc), sl), lanes, **kw),
+                "mesh_bvh_v3": lambda sl, lanes, **kw: mesh_kernel_v3.mesh_intersect_bvh_v3(
+                    bvh, *subset((o, d, tc), sl), **kw)}
         for kname, by_lanes in got.items():
             for lanes, res in by_lanes.items():
                 err = max_abs_diff(res, want)
                 mesh_err[kname] = max(mesh_err[kname], err)
-                own_equal = all(all_equal(subset(res, sl), flat_hit(own[kname](sl, lanes)))
-                                for sl in slices)
+                own_equal, slice_visits = True, []
+                for sl in slices:
+                    plain, plain_visits = counted(
+                        lambda c: flat_hit(own[kname](sl, lanes, visit_counter=c)))
+                    alone, visits = counted(
+                        lambda c: flat_hit(kern[kname](sl, lanes, visit_counter=c)))
+                    own_equal = (own_equal and all_equal(subset(res, sl), plain)
+                                 and all_equal(alone, plain))
+                    slice_visits.append({"rays": [sl.start, sl.stop], "kernel": visits,
+                                         "plain": plain_visits})
+                visits_equal = all(v["kernel"] == v["plain"] for v in slice_visits)
                 rec_ = {"phase": "mesh_v2_check" if kname == "mesh_bvh_v2" else "mesh_v3_check",
                         **where, "rays": n, "lanes": lanes,
                         "live": int((tc > float("-inf")).sum()),
                         "hits": int(torch.isfinite(want[0]).sum()),
                         "equals_dense_scan": all_equal(res, want),
                         "equals_per_ray_kernel": all_equal(res, k4),
-                        "equals_own_plain_on_slices": own_equal, "max_abs_err": err,
+                        "equals_own_plain_on_slices": own_equal,
+                        "slice_visits": slice_visits, "visits_equal_plain": visits_equal,
+                        "max_abs_err": err,
                         "bar": "t, point, normal, material equal bit for bit (torch.equal) "
                                "to the dense scan and to the per-ray kernel on every ray "
-                               "of the call, and to the kernel's own plain version on "
-                               "rays [0, 512) and [n/2, n/2 + 512)"}
+                               "of the call; on each whole-tile slice of "
+                               f"{VISIT_SLICE} rays, the call's output and the kernel "
+                               "launched on the slice equal to the kernel's own plain "
+                               "version, and the launch's visits equal to the plain "
+                               "walk's"}
                 emit(rec_)
                 require(rec_["equals_dense_scan"] and rec_["equals_per_ray_kernel"]
-                        and own_equal, f"{kname} at lanes {lanes} on {where}")
+                        and own_equal and visits_equal, f"{kname} at lanes {lanes} on {where}")
+                require(any(v["kernel"] > 0 for v in slice_visits),
+                        f"{kname} at lanes {lanes} on {where}: no visit on either slice")
 
     for name, sc in mesh_scenes.items():
         bvh = sc.mesh.bvh
@@ -1437,18 +1470,34 @@ def main():
     # ---- 10e. the three traversals side by side ----
     # Every call of one frame (all bounces), recorded from a carry-sorted
     # frame (the default) and from an unsorted one, timed alone through each
-    # kernel; ms per frame beside the bound of the work the rays need
-    # (`traversal_work`: the same for every traversal) and what a
-    # thread-per-ray warp would issue for it (`traversal_warp_work`).  K4
+    # kernel: events around 3 calls back to back ("per_launch_ms") and device
+    # time, 3 calls in a CUDA graph ("per_launch_device_ms"); ms per frame
+    # beside the bound of the work the rays need (`traversal_work`: the same
+    # for every traversal) and what a thread-per-ray warp would issue for it
+    # (`traversal_warp_work`), and the tile kernels' visits per frame.  K4
     # is held to its plain version on every call, and its witness builds
-    # (K4_WITNESSES: each cluster worked one way only) to K4.
+    # (K4_WITNESSES: each cluster worked one way only) to K4; K7 and K8 to
+    # K4 on every call.
     traversal_fns = {
         "mesh_bvh_v2p": lambda b, o, d, tc: mesh_kernel_v2p.mesh_intersect_bvh_v2p(b, o, d, tc),
-        "mesh_bvh_v2@128": lambda b, o, d, tc: mesh_kernel.mesh_intersect_bvh(b, o, d, tc, 128),
-        "mesh_bvh_v2@1024": lambda b, o, d, tc: mesh_kernel.mesh_intersect_bvh(b, o, d, tc, 1024),
-        "mesh_bvh_v3": lambda b, o, d, tc: mesh_kernel_v3.mesh_intersect_bvh_v3(b, o, d, tc)}
+        "mesh_bvh_v2@128": lambda b, o, d, tc, **kw: mesh_kernel.mesh_intersect_bvh(
+            b, o, d, tc, 128, **kw),
+        "mesh_bvh_v2@1024": lambda b, o, d, tc, **kw: mesh_kernel.mesh_intersect_bvh(
+            b, o, d, tc, 1024, **kw),
+        "mesh_bvh_v3": lambda b, o, d, tc, **kw: mesh_kernel_v3.mesh_intersect_bvh_v3(
+            b, o, d, tc, **kw)}
+    tile_fns = {k: fn for k, fn in traversal_fns.items() if k != "mesh_bvh_v2p"}
 
-    impl_timing = {}
+    def frame_visits(fn, calls):
+        """(outputs, visits summed over the calls) of one frame through ``fn``."""
+        outs, total = [], 0
+        for a in calls:
+            out, visits = counted(lambda c: flat_hit(fn(*a, visit_counter=c)))
+            outs.append(out)
+            total += visits
+        return outs, total
+
+    impl_timing, impl_device, impl_visits, per_launch_by_frame = {}, {}, {}, {}
     for name, sc in mesh_scenes.items():
         for order in ("sorted", "unsorted"):
             calls = [a[:4] for a in (recorded[name]["v2p"]["v2p"] if order == "sorted" else
@@ -1483,6 +1532,18 @@ def main():
                          "equal to K4"})
             require(all(equal) and all(witnesses_equal.values()),
                     f"K4 on the {order} {name} frame")
+            # K7 and K8 against K4 (which equals the dense scan) on every call
+            tile_equal, visits = {}, {}
+            for tname, fn in tile_fns.items():
+                outs, visits[tname] = frame_visits(fn, calls)
+                tile_equal[tname] = all(all_equal(g, w) for g, w in zip(outs, k4_out))
+            impl_visits[name, order] = visits
+            emit({"phase": "mesh_tile_frame_check", "scene": name,
+                  "rays_carry_sorted": order == "sorted", "card": smi,
+                  "visits_per_frame": visits, "equal_to_k4": tile_equal,
+                  "bar": "K7 at 128 and 1024 lanes and K8 equal to K4 bit for bit "
+                         "(torch.equal) on every call of the frame"})
+            require(all(tile_equal.values()), f"K7 / K8 on the {order} {name} frame: {tile_equal}")
             work = [mesh_kernel_v2p.traversal_work(*a) for a in calls]
             warp = [mesh_kernel_v2p.traversal_warp_work(*a) for a in calls]
             per_warp = [mesh_kernel_v2p.warp_live_clusters(*a) for a in calls]
@@ -1491,10 +1552,16 @@ def main():
             sums = [sum(w_[k] for w_ in work) for k in (1, 2)]
             unions = [sum(w_[k] for w_ in warp) for k in (1, 2)]
             per_kernel = {k: time_calls(fn, calls, reps=3) for k, fn in traversal_fns.items()}
+            per_device = {k: device_calls(fn, calls, reps=3) for k, fn in traversal_fns.items()}
+            per_launch_by_frame[name, order] = per_kernel
             impl_timing[name, order] = {k: sum(v) for k, v in per_kernel.items()}
+            impl_device[name, order] = {k: sum(v) for k, v in per_device.items()}
             emit({"phase": "mesh_impl_timing", "scene": name, "rays_carry_sorted": order == "sorted",
                   "card": smi, "launches_per_frame": len(calls),
                   "frame_ms": impl_timing[name, order], "per_launch_ms": per_kernel,
+                  "frame_device_ms": impl_device[name, order],
+                  "per_launch_device_ms": per_device,
+                  "visits_per_frame": impl_visits[name, order],
                   "frame_bound_ms": sum(b for b, _ in bounds),
                   "bound_by": sorted({by for _, by in bounds}),
                   "frame_face_tests": sums[0], "frame_node_tests": sums[1],
@@ -1680,12 +1747,21 @@ def main():
          "source": f"ai_path_tracer_denoiser_tpu_torch/csrc/{kname}.cu",
          "replaces": replaces, "launches": impl_counts[impl, "--mesh-octant-sort"][kname],
          "max_abs_err": mesh_err[kname], "ms": impl_timing["blob", "sorted"][timed_as],
+         "device_ms": impl_device["blob", "sorted"][timed_as],
+         "per_launch_ms": per_launch_by_frame["blob", "sorted"][timed_as],
+         "visits_per_frame": impl_visits["blob", "sorted"][timed_as],
          "plain_ms": mesh_summary["mesh_bvh_v2p"]["plain_ms"],
          "bound_ms": mesh_summary["mesh_bvh_v2p"]["bound_ms"],
          "bound_by": mesh_summary["mesh_bvh_v2p"]["bound_by"], "library_ms": None,
          "frame_ms_by_scene_and_order": {
              f"{sc_}:{order}": {k: v for k, v in t.items() if k.startswith(kname)}
-             for (sc_, order), t in impl_timing.items()}}
+             for (sc_, order), t in impl_timing.items()},
+         "frame_device_ms_by_scene_and_order": {
+             f"{sc_}:{order}": {k: v for k, v in t.items() if k.startswith(kname)}
+             for (sc_, order), t in impl_device.items()},
+         "visits_per_frame_by_scene_and_order": {
+             f"{sc_}:{order}": {k: v for k, v in t.items() if k.startswith(kname)}
+             for (sc_, order), t in impl_visits.items()}}
         for kname, replaces, impl, timed_as in (
             ("mesh_bvh_v2", "ai_path_tracer_denoiser_tpu/render/mesh_kernel.py:199", "v2",
              "mesh_bvh_v2@1024"),

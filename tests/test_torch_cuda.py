@@ -19,7 +19,8 @@ rounding step (1e-2 + 1.6e-2|p|).  The mesh kernels (the three BVH
 traversals, bin subscription, pair intersection) and the probe's scalar
 visit kernel are built with -fmad=false too and do their plain versions'
 operations in order: every output equal bit for bit (``torch.equal``, which
-takes -0.0 and +0.0 as equal).  The probe's tensor-core visit kernel is held
+takes -0.0 and +0.0 as equal), and the two tile traversals' visit counts
+equal to their plain walks' as integers.  The probe's tensor-core visit kernel is held
 to |t_k - t_p| <= 1e-5 |t_p| + 1e-5 and equal face ids on all but 10 of 1024
 rays, its TF32 mode against the plain version with TF32-rounded operands
 and its 3xTF32 mode against the float32 one (tensor-core summation order;
@@ -799,29 +800,97 @@ def test_k4_calls_on_two_streams_match_plain_on_card(cuda_device):
         assert _all_equal(got_main, want[0]) and _all_equal(got_side, want[1])
 
 
+def _edge_on_soup(n_faces, seed, device):
+    """``_soup_bvh``'s soup with every 13th face flattened into a plane
+    x = const, and ``_soup_rays``'s rays (zero direction components with the
+    origin on a box face, t_cull = -inf rays) with every 23rd ray lying in
+    one of those planes, aimed at its face: edge-on, the determinant 0."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-3, 3, (n_faces, 1, 3)).repeat(3, axis=1).astype(np.float32)
+    verts = base + rng.uniform(-0.4, 0.4, (n_faces, 3, 3)).astype(np.float32)
+    flat_faces = np.arange(0, n_faces, 13)
+    verts[flat_faces, :, 0] = verts[flat_faces, :1, 0]
+    normals = rng.normal(size=(n_faces, 3, 3)).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=-1, keepdims=True)
+    bvh = build_mesh_bvh(verts, normals, rng.integers(0, 5, n_faces).astype(np.int32))[0]
+    n = 8192 + 37
+    o, d, tc = _soup_rays(n, seed + 1, bvh.super_bounds.numpy(), "cpu")
+    o, d = [np.stack([c.numpy() for c in v]) for v in (o, d)]
+    lying = np.arange(5, n, 23)
+    face = verts[flat_faces[lying % len(flat_faces)]]
+    angle = rng.uniform(0, 2 * np.pi, len(lying))
+    center = face.mean(axis=1)
+    o[:, lying] = np.stack([face[:, 0, 0], center[:, 1] + 4 * np.cos(angle),
+                            center[:, 2] + 4 * np.sin(angle)]).astype(np.float32)
+    d[:, lying] = np.stack([np.zeros_like(angle), -np.cos(angle),
+                            -np.sin(angle)]).astype(np.float32)
+    vec = lambda a: Vec3(*(torch.from_numpy(np.ascontiguousarray(c)).to(device) for c in a))
+    return bvh.to(device), vec(o), vec(d), tc.to(device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_faces", [300, 5000])
 def test_tile_and_front_to_back_traversals_match_plain_on_card(cuda_device, n_faces):
-    bvh = _soup_bvh(n_faces, n_faces).to(cuda_device)
-    o, d, tc = _soup_rays(8192 + 37, 3, bvh.super_bounds.cpu().numpy(), cuda_device)
+    # K7 at three tile sizes and K8 against the dense scan and their plain
+    # walks, and each kernel's visits against its plain walk's on the same
+    # rays (on the card)
+    bvh, o, d, tc = _edge_on_soup(n_faces, n_faces, cuda_device)
     want = mesh_kernel_v2p.mesh_intersect_bvh_v2p_plain(bvh, o, d, tc)
     assert torch.isfinite(want[0]).sum() > 0
-    for kernel, call in (
-            (mesh_kernel.KERNEL, lambda: mesh_kernel.mesh_intersect_bvh(bvh, o, d, tc)),
-            (mesh_kernel.KERNEL, lambda: mesh_kernel.mesh_intersect_bvh(bvh, o, d, tc, lanes=128)),
-            (mesh_kernel.KERNEL, lambda: mesh_kernel.mesh_intersect_bvh(bvh, o, d, tc, lanes=640)),
-            (mesh_kernel_v3.KERNEL, lambda: mesh_kernel_v3.mesh_intersect_bvh_v3(bvh, o, d, tc))):
-        launches = kernel.launches
-        got = call()
+    assert not torch.isfinite(want[0][tc == float("-inf")]).any()
+    calls = {
+        **{f"v2@{lanes}": (mesh_kernel, lambda counter, lanes=lanes: mesh_kernel.mesh_intersect_bvh(
+            bvh, o, d, tc, lanes, visit_counter=counter)) for lanes in (1024, 128, 640)},
+        "v3": (mesh_kernel_v3, lambda counter: mesh_kernel_v3.mesh_intersect_bvh_v3(
+            bvh, o, d, tc, visit_counter=counter))}
+    plain = {f"v2@{lanes}": lambda counter, lanes=lanes: mesh_kernel.mesh_intersect_bvh_plain(
+                 bvh, o, d, tc, lanes, visit_counter=counter) for lanes in (1024, 128, 640)}
+    plain["v3"] = lambda counter: mesh_kernel_v3.mesh_intersect_bvh_v3_plain(
+        bvh, o, d, tc, visit_counter=counter)
+    for name, (module, call) in calls.items():
+        counter, plain_counter = (torch.zeros(1, dtype=torch.int32, device=cuda_device)
+                                  for _ in range(2))
+        launches = module.KERNEL.launches
+        got = call(counter)
         torch.cuda.synchronize()
-        assert kernel.launches == launches + 1
-        assert _all_equal(got, want)
-    head = slice(0, 1024)
-    sub = (Vec3(*(c[head] for c in o)), Vec3(*(c[head] for c in d)), tc[head])
-    assert _all_equal(mesh_kernel.mesh_intersect_bvh(bvh, *sub, lanes=128),
-                      mesh_kernel.mesh_intersect_bvh_plain(bvh, *sub, lanes=128))
-    assert _all_equal(mesh_kernel_v3.mesh_intersect_bvh_v3(bvh, *sub),
-                      mesh_kernel_v3.mesh_intersect_bvh_v3_plain(bvh, *sub))
+        assert module.KERNEL.launches == launches + 1
+        assert _all_equal(got, want), name
+        assert _all_equal(plain[name](plain_counter), want), name
+        visits = int(counter.item())
+        assert visits == int(plain_counter.item()) and visits > 0, name
+
+
+@pytest.mark.cuda
+def test_tile_traversals_replay_in_a_cuda_graph_on_card(cuda_device):
+    # K7 at 128 and 1024 lanes and K8 warmed up on a side stream, then
+    # captured in one CUDA graph, as the timers use them: every replay equals
+    # the launch on the main stream, output and visits
+    bvh, o, d, tc = _edge_on_soup(300, 300, cuda_device)
+    calls = {f"v2@{lanes}": lambda counter, lanes=lanes: mesh_kernel.mesh_intersect_bvh(
+                 bvh, o, d, tc, lanes, visit_counter=counter) for lanes in (128, 1024)}
+    calls["v3"] = lambda counter: mesh_kernel_v3.mesh_intersect_bvh_v3(
+        bvh, o, d, tc, visit_counter=counter)
+    counters = {name: torch.zeros(1, dtype=torch.int32, device=cuda_device) for name in calls}
+    want = {name: call(counters[name]) for name, call in calls.items()}
+    torch.cuda.synchronize()
+    visits = {name: int(c.item()) for name, c in counters.items()}
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for name, call in calls.items():
+            assert _all_equal(call(counters[name]), want[name]), name
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = {name: call(counters[name]) for name, call in calls.items()}
+    for _ in range(3):
+        for c in counters.values():
+            c.fill_(-1)
+        graph.replay()
+        torch.cuda.synchronize()
+        for name in calls:
+            assert _all_equal(got[name], want[name]), name
+            assert int(counters[name].item()) == visits[name] > 0, name
 
 
 @pytest.mark.cuda
