@@ -1,10 +1,14 @@
 """Command-line application (counterpart of app/cli.py).
 
-  render       accumulate N spp and save a PNG
+  render       accumulate N spp and save a PNG (and an HDR, the G-buffer)
   interactive  headless frame loop: per frame orbit the camera, trace 1 spp
                into the G-buffer, denoise with the recurrent network
-               (hidden state carried), write the frame
-  datagen      render (1-spp G-buffer, high-spp ground truth) training pairs
+               (hidden state carried), write the frame (and stream it live
+               with --serve)
+  datagen      render (1-spp G-buffer, high-spp ground truth) training pairs,
+               of the scene and of randomized variants of it
+  randomize    write randomized scene variants
+  preprocess   PNG directories -> npy training pairs (host only)
   train        train the denoiser on such a corpus
   eval         [input | prediction | ground truth] strips
   export       checkpoint -> deployable model artifact
@@ -15,9 +19,8 @@ flag under the JAX CLI's name) or ``--device cpu``; on the card the render
 goes through the megakernel (scenes with a mesh over 64 faces: through the
 plain wavefront with the mesh BVH kernels), the denoiser's convs through
 the fused conv kernels, and training's convs through the tile kernel
-forward and backward.  Not ported yet (ROADMAP queue A): ``randomize``,
-``preprocess``, ``datagen --variants``, ``train --data-parallel`` and
-``interactive --serve``.
+forward and backward.  Not ported yet (ROADMAP queue A):
+``train --data-parallel``.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import time
 
@@ -96,29 +100,46 @@ class _Clock:
 
 
 def cmd_render(args):
+    """Accumulate N spp; write the PNG and, with ``--hdr`` /
+    ``--save-gbuffer``, the Radiance HDR and the (10, H, W) G-buffer.
+    Returns {"png", "hdr", "gbuffer"}: the paths written (None where not)."""
     from ..render import render
-    from ..utils.imageio import save_png_scaled
+    from ..utils.imageio import save_hdr, save_png_scaled
     device = resolve_device(args.device)
     scene = _load_scene_scaled(args.scene, device, args.res, args.res_wh)
     spp = args.spp or scene.iterations
     t0 = time.time()
-    image, _, _ = render(scene, _render_options(args), num_iterations=spp)
+    image, gbuffer, _ = render(scene, _render_options(args), num_iterations=spp)
     image = image.flip(1).cpu().numpy()      # un-mirror to display orientation
     out = args.out or scene.image_name
-    path = save_png_scaled(out if out.endswith(".png") else out + ".png", image)
-    print(f"rendered {spp} spp in {time.time() - t0:.2f}s -> {path}")
+    written = {"png": save_png_scaled(out if out.endswith(".png") else out + ".png",
+                                      image),
+               "hdr": None, "gbuffer": None}
+    if args.hdr:
+        written["hdr"] = save_hdr(out.replace(".png", ""), image)
+    if args.save_gbuffer:
+        written["gbuffer"] = out.replace(".png", "") + "_gbuffer.npy"
+        np.save(written["gbuffer"], gbuffer.cpu().numpy())
+    print(f"rendered {spp} spp in {time.time() - t0:.2f}s -> {written['png']}")
+    return written
 
 
 def cmd_interactive(args):
     """Headless interactive loop (runCuda, main.cpp:120-168).
 
+    Per frame: the camera orbits (or follows ``--serve``'s viewer input),
+    a 1-spp render fills the G-buffer, the denoiser turns it into the
+    frame.  Frames are emitted one behind: frame i-1 is fetched, written
+    and pushed to the preview only after frame i's render and denoise are
+    dispatched, so the copy back and the host's PNG encode run while the
+    card works (on the card each frame's copy goes into one of two sets of
+    page-locked buffers, ordered by an event).
+
     Returns one record per frame: its index, PNG path, whether the
-    denoised frame is finite, and the render, denoise and total
-    milliseconds (CUDA events on the card).
+    denoised frame is finite, the render, denoise and total milliseconds
+    (CUDA events on the card) and ``emitted_s``, the host clock
+    (``time.perf_counter``) when it was written.
     """
-    if args.serve:
-        raise NotImplementedError("interactive --serve (utils/preview.py) is "
-                                  "not ported yet (ROADMAP queue A)")
     from ..models import (apply_frame, apply_frame_fast_padded,
                           init_autoencoder, init_hidden, load_model,
                           model_options_from_meta, padded_resolution,
@@ -169,37 +190,93 @@ def cmd_interactive(args):
                 conv_impl=args.conv_impl)
     phi, theta, zoom = orbit_params_from_camera(scene.camera)
     os.makedirs(args.out_dir, exist_ok=True)
+    server = None
+    if args.serve:
+        # live preview stream: the headless stand-in for the reference's
+        # GL window and imshow (preview.cpp:174-203, main.cpp:89-100)
+        from ..utils.preview import PreviewServer
+        server = PreviewServer(port=args.serve, host=args.serve_host)
+        print(f"live preview at http://{args.serve_host}:{server.port}/")
     gt_spp = (args.spp or scene.iterations) if args.ground_truth else 1
     if args.ground_truth:
         print(f"ground-truth mode: {gt_spp} spp per frame")
     clock = _Clock(device)
+    on_card = device.type == "cuda"
+    host = None                    # on the card: two sets of page-locked buffers
     records = []
-    t_loop = time.time()
-    for frame in range(args.frames):
-        if frame:
-            phi += args.dphi
-        cam = orbit_camera(scene.camera, phi, theta, zoom)
-        fscene = dataclasses.replace(scene, camera=cam)
-        t0 = clock.mark()
-        if args.ground_truth:
-            _, gbuffer, _ = render(fscene, options, num_iterations=gt_spp)
-        else:
-            _, gbuffer, _ = render_gbuffer_frame(fscene, options)
-        t1 = clock.mark()
-        denoised, hidden = denoise(gbuffer, hidden)
-        t2 = clock.mark()
-        out = denoised[0].clamp(0, 1).cpu().numpy()
+
+    def fetch(frame, gbuffer, denoised, marks):
+        """Queue the frame's copy back (on the card: into buffer set
+        frame % 2, then an event); returns what ``emit`` needs."""
+        nonlocal host
+        arrays = {"out": denoised[0].clamp(0, 1)}
+        if args.save_arrays:
+            arrays.update(gbuffer=gbuffer, denoised=denoised[0])
+        if not on_card:
+            return frame, arrays, marks, None
+        if host is None:
+            host = [{k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                     for k, v in arrays.items()} for _ in range(2)]
+        bufs = host[frame % 2]
+        for k, v in arrays.items():
+            bufs[k].copy_(v, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return frame, bufs, marks, ready
+
+    def emit(frame, arrays, marks, ready):
+        if ready is not None:
+            ready.synchronize()
+        out = arrays["out"].numpy()
+        if server is not None:
+            server.push(out)
         base = os.path.join(args.out_dir, f"frame_{frame:04d}")
         path = save_png_scaled(base, out)
         if args.save_arrays:
-            np.save(base + "_gbuffer.npy", gbuffer.cpu().numpy())
-            np.save(base + "_denoised.npy", denoised[0].cpu().numpy())
+            np.save(base + "_gbuffer.npy", arrays["gbuffer"].numpy())
+            np.save(base + "_denoised.npy", arrays["denoised"].numpy())
+        t0, t1, t2 = marks
         rec = {"frame": frame, "path": path, "finite": bool(np.isfinite(out).all()),
                "render_ms": clock.ms(t0, t1), "denoise_ms": clock.ms(t1, t2),
-               "total_ms": clock.ms(t0, t2)}
+               "total_ms": clock.ms(t0, t2), "emitted_s": time.perf_counter()}
         records.append(rec)
         print(f"frame {frame}: render {rec['render_ms']:.2f} ms, denoise "
               f"{rec['denoise_ms']:.2f} ms -> {path}")
+
+    pending = None
+    t_loop = time.time()
+    try:
+        for frame in range(args.frames):
+            if frame:
+                phi += args.dphi
+            if server is not None:
+                # orbit input from the preview page (the mouse and key
+                # callbacks' headless analogue, main.cpp:169-223)
+                cam_in = server.pop_camera()
+                phi = cam_in.get("phi", phi) + cam_in.get("dphi", 0.0)
+                theta = cam_in.get("theta", theta) + cam_in.get("dtheta", 0.0)
+                zoom = cam_in.get("zoom", zoom) + cam_in.get("dzoom", 0.0)
+                theta = min(max(theta, 1e-3), math.pi - 1e-3)
+                zoom = max(zoom, 0.1)
+            cam = orbit_camera(scene.camera, phi, theta, zoom)
+            fscene = dataclasses.replace(scene, camera=cam)
+            t0 = clock.mark()
+            if args.ground_truth:
+                _, gbuffer, _ = render(fscene, options, num_iterations=gt_spp)
+            else:
+                _, gbuffer, _ = render_gbuffer_frame(fscene, options)
+            t1 = clock.mark()
+            denoised, hidden = denoise(gbuffer, hidden)
+            t2 = clock.mark()
+            fetched = fetch(frame, gbuffer, denoised, (t0, t1, t2))
+            if pending is not None:
+                emit(*pending)
+            pending = fetched
+        if pending is not None:
+            emit(*pending)
+    finally:
+        if server is not None:
+            server.close()
     if args.frames > 1:
         avg = (time.time() - t_loop) / args.frames
         print(f"{args.frames} frames, {avg * 1e3:.1f} ms/frame sustained "
@@ -216,13 +293,20 @@ def _rescale(scene, res):
 
 
 def cmd_datagen(args):
+    """Render a training corpus: the scene, then ``--variants`` randomized
+    copies of it (``scene/randomizer.py``, drawn from ``--seed``)."""
     from ..data import generate_training_data
-    from ..scene import load_scene
-    if args.variants:
-        raise NotImplementedError("datagen --variants (scene/randomizer.py) "
-                                  "is not ported yet (ROADMAP queue A)")
+    from ..scene import load_scene, parse_scene_text
+    from ..scene.randomizer import generate_variants
     device = resolve_device(args.device)
     scenes = [load_scene(args.scene, device=device)]
+    if args.variants:
+        with open(args.scene) as f:
+            template = f.read()
+        base_dir = os.path.dirname(os.path.abspath(args.scene))
+        for text in generate_variants(template, args.variants, args.seed):
+            scenes.append(parse_scene_text(text, base_dir=base_dir,
+                                           device=device))
     if args.res:
         scenes = [_rescale(s, args.res) for s in scenes]
     return generate_training_data(
@@ -230,6 +314,30 @@ def cmd_datagen(args):
         gt_spp=args.gt_spp, noise_seeds=args.noise_seeds, movs=args.movs,
         quantize=args.quantize or None,
         options=_render_options(args), png_dump=args.png_dump)
+
+
+def cmd_randomize(args):
+    """Write ``--count`` randomized variants of a scene file as
+    ``scene_{i}.txt`` (i from 1); returns their paths."""
+    from ..scene.randomizer import generate_variants
+    with open(args.scene) as f:
+        template = f.read()
+    os.makedirs(args.out_dir, exist_ok=True)
+    paths = []
+    for i, text in enumerate(generate_variants(template, args.count, args.seed)):
+        path = os.path.join(args.out_dir, f"scene_{i + 1}.txt")
+        with open(path, "w") as f:
+            f.write(text)
+        print(path)
+        paths.append(path)
+    return paths
+
+
+def cmd_preprocess(args):
+    """PNG directories -> npy training pairs, on the host (needs cv2 or PIL)."""
+    from ..data import preprocess_png_dirs
+    return preprocess_png_dirs(args.root, args.rgb, args.depth, args.albedo,
+                               args.normal, args.gt, args.size)
 
 
 def cmd_train(args):
@@ -241,7 +349,7 @@ def cmd_train(args):
                          save_checkpoint)
     if args.data_parallel:
         raise NotImplementedError("train --data-parallel (parallel/dp.py) is "
-                                  "not ported yet (ROADMAP queue A item 13)")
+                                  "not ported yet (ROADMAP queue A item 8)")
     device = resolve_device(args.device)
     topt = TrainOptions(lr=args.lr, epochs=args.epochs,
                         crop_size=args.crop_size, batch_size=args.batch_size)
@@ -446,6 +554,10 @@ def build_parser() -> argparse.ArgumentParser:
     add_common(sp)
     sp.add_argument("--spp", type=int, default=None)
     sp.add_argument("--out", default=None)
+    sp.add_argument("--hdr", action="store_true",
+                    help="also write a Radiance .hdr of the image")
+    sp.add_argument("--save-gbuffer", action="store_true",
+                    help="also write the (10,H,W) G-buffer as <out>_gbuffer.npy")
     sp.set_defaults(fn=cmd_render)
 
     sp = sub.add_parser("interactive",
@@ -458,8 +570,11 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--save-arrays", action="store_true",
                     help="also write each frame's G-buffer (10,H,W) and "
                          "denoised image (H,W,3) as .npy")
+    sp.add_argument("--serve-host", default="127.0.0.1",
+                    help="preview bind address (default loopback only)")
     sp.add_argument("--serve", type=int, default=0, metavar="PORT",
-                    help="live preview (not ported yet)")
+                    help="stream frames live over HTTP (MJPEG, or PNG "
+                         "parts without PIL) on PORT")
     sp.add_argument("--parity-denoise", action="store_true",
                     help="run the train-graph eval path instead of the "
                          "BN-folded bfloat16 deployment path")
@@ -485,10 +600,27 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--quantize", default="", choices=("u8", ""),
                     help="store npy as uint8 (reference 8-bit regime)")
     sp.add_argument("--variants", type=int, default=0,
-                    help="randomized scene variants (not ported yet)")
+                    help="also render N randomized variants of the scene")
     sp.add_argument("--seed", type=int, default=0)
     sp.add_argument("--png-dump", action="store_true")
     sp.set_defaults(fn=cmd_datagen)
+
+    sp = sub.add_parser("randomize", help="write randomized scene variants")
+    sp.add_argument("scene")
+    sp.add_argument("--count", type=int, default=30)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--out-dir", default="scenes_generated")
+    sp.set_defaults(fn=cmd_randomize)
+
+    sp = sub.add_parser("preprocess", help="PNG dirs -> npy training pairs")
+    sp.add_argument("--root", required=True)
+    sp.add_argument("--rgb", required=True)
+    sp.add_argument("--depth", required=True)
+    sp.add_argument("--albedo", required=True)
+    sp.add_argument("--normal", required=True)
+    sp.add_argument("--gt", required=True)
+    sp.add_argument("--size", type=int, default=512)
+    sp.set_defaults(fn=cmd_preprocess)
 
     sp = sub.add_parser("train", help="train the denoiser")
     sp.add_argument("--data-dir", required=True)
@@ -500,7 +632,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--batch-size", type=int, default=1)
     sp.add_argument("--resume", action="store_true")
     sp.add_argument("--data-parallel", action="store_true",
-                    help="not ported yet")
+                    help="not ported yet (ROADMAP queue A)")
     sp.add_argument("--tpu-friendly", action="store_true",
                     help="the JAX package's widths (32, 48, 64, 80, 104)")
     sp.add_argument("--device-data", action="store_true",

@@ -198,12 +198,89 @@ def prepare_inference(params: Dict, bn_state: Dict,
                       compute_dtype=torch.bfloat16,
                       pad_multiple: int = 0) -> Dict:
     """Fold BN and cast conv weights to the compute dtype (biases and
-    affines stay float32 for the float32 epilogue).  One-time cost."""
-    if pad_multiple:
-        raise NotImplementedError("pad_channels is not ported yet "
-                                  "(ROADMAP queue A)")
+    affines stay float32 for the float32 epilogue).  One-time cost.
+    ``pad_multiple`` > 0 also zero-pads the internal channel widths up to
+    a multiple of it (``pad_channels``)."""
     folded = fold_batchnorm(params, bn_state, options)
+    if pad_multiple:
+        folded = pad_channels(folded, pad_multiple)
     return {blk: {name: {k: (v.to(compute_dtype) if k == "w" else v)
                          for k, v in leaf.items()}
                   for name, leaf in layers.items()}
             for blk, layers in folded.items()}
+
+
+def _pad_conv(conv, segments, in_total: int, out_p: int, out_keep: int):
+    """Re-pack a conv for padded channel layouts.
+
+    ``segments``: [(src_lo, src_hi, dst_lo), ...], where the original input
+    channels go in the padded input; every other row is zero.  Output
+    channels grow to ``out_p`` with zero weights and zero bias, so they
+    come out exactly zero through the LeakyReLU and add nothing downstream.
+    """
+    w = conv["w"]
+    k0, k1, _, c_out = w.shape
+    nw = w.new_zeros((k0, k1, in_total, out_p))
+    for lo, hi, dst in segments:
+        nw[:, :, dst:dst + (hi - lo), :c_out] = w[:, :, lo:hi, :]
+    nb = conv["b"].new_zeros((out_p,))
+    nb[:out_keep] = conv["b"][:out_keep]
+    return {"w": nw, "b": nb}
+
+
+def pad_channels(folded: Dict, multiple: int) -> Dict:
+    """Zero-pad every internal channel width of a folded network up to a
+    multiple of ``multiple``; the same function, exactly (padded lanes
+    carry zeros: zero weights, zero bias, LReLU(0) = 0, affine pads s = 1,
+    t = 0).  The network's input (10 channels) and output (3) keep their
+    widths.  Through the tile conv kernel, multiple 8 turns the reference
+    widths (32, 43, 57, 76, 101) into (32, 48, 64, 80, 104), whose inputs
+    it reads in place (Cin % 8 == 0); the hidden state then has the padded
+    widths.
+    """
+    def up(c):
+        return -(-c // multiple) * multiple
+
+    widths = [folded[f"enc{i}"]["conv1"]["w"].shape[-1] for i in range(1, 6)]
+    wp = [up(c) for c in widths]
+    out = {}
+    prev_p = folded["enc1"]["conv1"]["w"].shape[2]     # network input: 10
+    for i in range(1, 6):
+        p = folded[f"enc{i}"]
+        c, c_p = widths[i - 1], wp[i - 1]
+        aff = p["affine2"]
+        s = aff["s"].new_ones((c_p,))
+        s[:c] = aff["s"]
+        t = aff["t"].new_zeros((c_p,))
+        t[:c] = aff["t"]
+        out[f"enc{i}"] = {
+            "conv1": _pad_conv(p["conv1"], [(0, p["conv1"]["w"].shape[2], 0)],
+                               prev_p, c_p, c),
+            "conv2": _pad_conv(p["conv2"], [(0, c, 0), (c, 2 * c, c_p)],
+                               2 * c_p, c_p, c),
+            "affine2": {"s": s, "t": t},
+            "conv3": _pad_conv(p["conv3"], [(0, c, 0)], c_p, c_p, c),
+        }
+        prev_p = c_p
+    c, c_p = widths[4], wp[4]
+    p = folded["bottleneck"]
+    out["bottleneck"] = {
+        "conv1": _pad_conv(p["conv1"], [(0, c, 0)], c_p, c_p, c),
+        "conv2": _pad_conv(p["conv2"], [(0, c, 0), (c, 2 * c, c_p)],
+                           2 * c_p, c_p, c),
+        "conv3": _pad_conv(p["conv3"], [(0, c, 0)], c_p, c_p, c),
+    }
+    dec_in = widths[::-1]                       # 101, 76, 57, 43, 32
+    dec_in_p = wp[::-1]
+    dec_out = widths[:4][::-1] + [folded["dec1"]["conv2"]["w"].shape[-1]]
+    dec_out_p = wp[:4][::-1] + [dec_out[4]]     # the final 3 stay
+    for j, i in enumerate(range(5, 0, -1)):
+        p = folded[f"dec{i}"]
+        ci, ci_p = dec_in[j], dec_in_p[j]
+        co, co_p = dec_out[j], dec_out_p[j]
+        out[f"dec{i}"] = {
+            "conv1": _pad_conv(p["conv1"], [(0, ci, 0), (ci, 2 * ci, ci_p)],
+                               2 * ci_p, co_p, co),
+            "conv2": _pad_conv(p["conv2"], [(0, co, 0)], co_p, co_p, co),
+        }
+    return out

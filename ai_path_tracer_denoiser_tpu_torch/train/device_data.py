@@ -101,6 +101,55 @@ def epoch_crops(epoch: int, idxs, h: int, w: int, crop_h: int, crop_w: int):
     return cy, cx
 
 
+def _train_windows(state: TrainState, X, Y, starts, items, epoch: int,
+                   topt: TrainOptions, model_options, log, log_every: int,
+                   step_i: int = 0):
+    """Train on the windows of ``items`` (global item ids, in batches of
+    ``topt.batch_size``, a ragged tail dropped), cropped on the device from
+    the frame buffers X / Y, where item i's window starts at row
+    ``starts[i]``.  Returns (state, the epoch's step count so far)."""
+    batch = topt.batch_size
+    h, w = X.shape[1:3]
+    # crop_size=0 disables cropping: full (H, W) frames, like the host path.
+    crop_h = topt.crop_size if topt.crop_size else h
+    crop_w = topt.crop_size if topt.crop_size else w
+    in_dtype = torch.bfloat16 if topt.bf16_compute else torch.float32
+    for b0 in range(0, len(items) // batch * batch, batch):
+        idxs = items[b0:b0 + batch]
+        cy, cx = epoch_crops(epoch, idxs, h, w, crop_h, crop_w)
+        x, y = _crop_batch(X, Y, starts[idxs].tolist(), cy, cx,
+                           topt.sequence_length, crop_h, crop_w)
+        if X.dtype == torch.uint8:
+            x, y = _decode_u8(x, y, in_dtype)
+        state, metrics = train_step(state, x, y, topt, model_options)
+        log.step(step_i, metrics, log_every)
+        step_i += 1
+    return state, step_i
+
+
+def _fit_epochs(state: TrainState, topt: TrainOptions, epochs: int, start_epoch: int,
+                logger, checkpoint_fn, train_epoch) -> TrainState:
+    """The epoch loop of ``fit_device_data`` and ``fit_streamed``: the
+    learning-rate schedule, the sampled log, checkpoints.
+    ``train_epoch(state, epoch, log)`` trains one epoch and returns
+    (state, its step count)."""
+    overall_step = int(state.step)
+    for epoch in range(start_epoch, epochs):
+        lr = step_lr(topt.lr, epoch, topt.lr_step_epochs, topt.lr_gamma)
+        state = dataclasses.replace(state, lr=float(lr))
+        t0 = time.time()
+        log = _EpochLog(epoch, lr, overall_step, logger)
+        state, steps = train_epoch(state, epoch, log)
+        overall_step += steps
+        log.close(time.time() - t0)
+        if checkpoint_fn is not None and \
+                epoch % topt.checkpoint_every_epochs == 0:
+            checkpoint_fn(state, epoch)
+    if checkpoint_fn is not None:
+        checkpoint_fn(state, "final")
+    return state
+
+
 def fit_device_data(state: TrainState, dataset,
                     train_options: TrainOptions = TrainOptions(),
                     epochs: Optional[int] = None,
@@ -116,49 +165,23 @@ def fit_device_data(state: TrainState, dataset,
     """
     topt = train_options
     epochs = epochs if epochs is not None else topt.epochs
-    in_dtype = torch.bfloat16 if topt.bf16_compute else torch.float32
     if data is None:
         t0 = time.time()
         # The upload dtype follows the compute dtype: with bf16_compute off
         # the host path trains on float32 inputs and this path matches it.
         data = load_device_dataset(
-            dataset, dtype=in_dtype,
+            dataset, dtype=torch.bfloat16 if topt.bf16_compute else torch.float32,
             device=sorted_leaves(state.params)[0][1].device)
         n_bytes = sum(a.numel() * a.element_size() for a in data[:2])
         print(f"[device-data] uploaded {len(dataset)} frames "
               f"({n_bytes / 2**30:.1f} GiB) in {time.time() - t0:.0f}s")
     X, Y, starts_tbl = data
-    n = len(dataset)
-    batch = topt.batch_size
-    t_frames = topt.sequence_length
-    h, w = X.shape[1:3]
-    # crop_size=0 disables cropping: full (H, W) frames, like the host path.
-    crop_h = topt.crop_size if topt.crop_size else h
-    crop_w = topt.crop_size if topt.crop_size else w
-    steps_per_epoch = n // batch
 
-    overall_step = int(state.step)
-    for epoch in range(start_epoch, epochs):
-        lr = step_lr(topt.lr, epoch, topt.lr_step_epochs, topt.lr_gamma)
-        state = dataclasses.replace(state, lr=float(lr))
-        t0 = time.time()
-        order = np.arange(n)
+    def train_epoch(state, epoch, log):
+        order = np.arange(len(dataset))
         np.random.default_rng(epoch).shuffle(order)
-        log = _EpochLog(epoch, lr, overall_step, logger)
-        for i in range(steps_per_epoch):
-            idxs = order[i * batch:(i + 1) * batch]
-            cy, cx = epoch_crops(epoch, idxs, h, w, crop_h, crop_w)
-            x, y = _crop_batch(X, Y, starts_tbl[idxs].tolist(), cy, cx,
-                               t_frames, crop_h, crop_w)
-            if X.dtype == torch.uint8:
-                x, y = _decode_u8(x, y, in_dtype)
-            state, metrics = train_step(state, x, y, topt, model_options)
-            log.step(i, metrics, log_every)
-        overall_step += steps_per_epoch
-        log.close(time.time() - t0)
-        if checkpoint_fn is not None and \
-                epoch % topt.checkpoint_every_epochs == 0:
-            checkpoint_fn(state, epoch)
-    if checkpoint_fn is not None:
-        checkpoint_fn(state, "final")
-    return state
+        return _train_windows(state, X, Y, starts_tbl, order, epoch, topt,
+                              model_options, log, log_every)
+
+    return _fit_epochs(state, topt, epochs, start_epoch, logger, checkpoint_fn,
+                       train_epoch)

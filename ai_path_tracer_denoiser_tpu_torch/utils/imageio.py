@@ -1,7 +1,9 @@
-"""PNG writing and reading in numpy (counterpart of utils/imageio.py).
+"""PNG and Radiance HDR writing, PNG reading, in numpy (counterpart of
+utils/imageio.py).
 
 ``save_png_scaled`` is image::savePNG_scaled (image.cpp:41-58): clamp to
-[0, 1], scale by 255, write 8-bit.  The encoder is self-contained (stdlib
+[0, 1], scale by 255, write 8-bit.  ``save_hdr`` is image::saveHDR
+(image.cpp:60-64): flat RGBE scanlines.  The encoder is self-contained (stdlib
 zlib, filter type 0 on every row).  ``read_png`` decodes any 8-bit
 non-interlaced PNG (all five row filters; gray, gray+alpha, RGB, RGBA) and
 returns RGB, as the JAX package's ``read_png`` does through PIL's
@@ -51,6 +53,29 @@ def save_png_scaled(path: str, pixels: np.ndarray) -> str:
     """clamp [0,1] then x255 (image::savePNG_scaled, image.cpp:41-58)."""
     arr = (np.clip(np.asarray(pixels, np.float32), 0.0, 1.0) * 255.0).astype(np.uint8)
     return save_png(path, arr)
+
+
+def save_hdr(path: str, pixels: np.ndarray) -> str:
+    """Radiance RGBE .hdr writer (image::saveHDR, image.cpp:60-64), flat
+    (uncompressed) scanlines; ``.hdr`` is appended where the path lacks it."""
+    img = np.asarray(pixels, np.float32)
+    h, w, _ = img.shape
+    if not path.endswith(".hdr"):
+        path = path + ".hdr"
+    maxc = img.max(axis=-1)
+    exp = np.zeros((h, w), np.int32)
+    mant = np.zeros((h, w), np.float64)
+    nz = maxc > 1e-32
+    mant[nz], exp[nz] = np.frexp(maxc[nz])
+    scale = np.where(nz, mant * 256.0 / np.maximum(maxc, 1e-32), 0.0)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.clip(img * scale[..., None], 0, 255).astype(np.uint8)
+    rgbe[..., 3] = np.where(nz, exp + 128, 0).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        f.write(rgbe.tobytes())
+    return path
 
 
 def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:

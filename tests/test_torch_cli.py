@@ -83,28 +83,50 @@ def test_interactive_cli_matches_jax(tmp_path):
             png, (np.clip(ty, 0, 1) * 255.0).astype(np.uint8))
 
 
-@pytest.mark.parametrize("flag", ["--serve=8000", "--parity-denoise"])
+@pytest.mark.parametrize("flag", [pytest.param("--serve", id="--serve=8000"),
+                                  "--parity-denoise"])
 def test_unported_options_raise(flag, tmp_path):
-    """``--serve`` still waits for utils/preview.py and says so;
-    ``--parity-denoise`` is ported now and runs the train graph in eval mode
-    (held against the folded path below)."""
+    """Both options are ported: ``--serve`` streams the frame it emits to a
+    viewer on a free loopback port (PNG or JPEG, rounded to 8 bits with
+    + 0.5); ``--parity-denoise`` runs the train graph in eval mode (held
+    against the folded path below)."""
     from ai_path_tracer_denoiser_tpu_torch.app.cli import main
+    from ai_path_tracer_denoiser_tpu_torch.utils import preview
+    from test_torch_preview import free_port, serve_interactive
     argv = ["interactive", "scenes/cornell_box.txt", "--device", "cpu", "--res", "32",
-            "--frames", "1", flag, "--out-dir", str(tmp_path)]
+            "--frames", "1", "--out-dir", str(tmp_path), flag]
     if flag == "--parity-denoise":
         assert main(argv)[0]["finite"]
-    else:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            main(argv)
+        return
+    records, part, pushed = serve_interactive(argv + [str(free_port()), "--save-arrays"])
+    assert len(records) == 1 and records[0]["finite"] and len(pushed) == 1
+    frame = np.clip(np.load(records[0]["path"][:-len(".png")] + "_denoised.npy"), 0, 1)
+    np.testing.assert_array_equal(pushed[0], frame)
+    assert part == preview._encode((frame * 255.0 + 0.5).astype(np.uint8))
 
 
 @pytest.mark.parametrize("argv", [
     ["datagen", "scenes/cornell_box.txt", "--out-dir", "unused", "--variants", "2"],
     ["train", "--data-dir", "unused", "--data-parallel"]])
-def test_unported_commands_raise(argv):
+def test_unported_commands_raise(argv, tmp_path):
+    """``train --data-parallel`` is the one command line still refused;
+    ``datagen --variants 2`` renders the scene and two randomized variants
+    (32x32, 2 frames, 2-spp truth, one pan)."""
     from ai_path_tracer_denoiser_tpu_torch.app.cli import main
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(argv + ["--device", "cpu"])
+    if argv[0] == "train":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            main(argv + ["--device", "cpu"])
+        return
+    out = str(tmp_path / "unused")
+    argv = [out if a == "unused" else a for a in argv]
+    in_dir, gt_dir = main(argv + ["--device", "cpu", "--res", "32", "--frames", "2",
+                                  "--gt-spp", "2", "--movs", "1"])
+    names = sorted(os.listdir(in_dir))
+    assert names == sorted(os.listdir(gt_dir)) == [
+        f"{s:03d}_0_0_{f:04d}.npy" for s in range(3) for f in range(2)]
+    first = [np.load(os.path.join(in_dir, f"{s:03d}_0_0_0000.npy")) for s in range(3)]
+    assert all(x.shape == (32, 32, 10) and np.isfinite(x).all() for x in first)
+    assert not np.array_equal(first[0], first[1]) and not np.array_equal(first[1], first[2])
 
 
 def test_parity_denoise_equals_the_folded_path(tmp_path):

@@ -1109,3 +1109,130 @@ def test_fit_feeds_the_card_from_host_batches(cuda_device):
     assert state.step == 3 and saved == [0, "final"]
     assert state.params["enc1"]["conv1"]["w"].device.type == "cuda"
     assert conv_kernel.KERNEL.launches - before == 3 * (2 * 28 + 2 * 28 - 2)
+
+
+def _stream_corpus(root, groups=4, frames=4, res=64):
+    """(scene, 0, 0, frame) npy pairs from a numpy seed: ``groups`` groups."""
+    rng = np.random.default_rng(0)
+    (root / "input").mkdir(parents=True)
+    (root / "gt").mkdir()
+    for s in range(groups):
+        for f in range(frames):
+            name = f"{s:03d}_0_0_{f:04d}.npy"
+            np.save(root / "input" / name, rng.random((res, res, 10)).astype(np.float32))
+            np.save(root / "gt" / name, rng.random((res, res, 3)).astype(np.float32))
+    return str(root / "input"), str(root / "gt")
+
+
+def resident_replay(state, dataset, topt, mopt, shard_frames):
+    """``fit_streamed``'s schedule (shard order, windows, crops) on the
+    device-resident corpus: the same steps with no buffer swap and no side
+    stream, the reference a streamed fit must equal bit for bit."""
+    from types import SimpleNamespace
+
+    from ai_path_tracer_denoiser_tpu_torch.models.export import sorted_leaves
+    from ai_path_tracer_denoiser_tpu_torch.train import (device_data, load_device_dataset,
+                                                         step_lr, stream_data)
+    X, Y, starts = load_device_dataset(dataset, dtype=torch.bfloat16,
+                                       device=sorted_leaves(state.params)[0][1].device)
+    shards = stream_data.shard_plan(dataset, shard_frames)
+    quiet = SimpleNamespace(step=lambda *a: None)
+    for epoch in range(topt.epochs):
+        state = dataclasses.replace(state, lr=float(step_lr(topt.lr, epoch, topt.lr_step_epochs,
+                                                            topt.lr_gamma)))
+        for _, items in stream_data._epoch_plan(shards, epoch):
+            state, _ = device_data._train_windows(state, X, Y, starts, items, epoch, topt,
+                                                  mopt, quiet, 1)
+    return state
+
+
+@pytest.mark.cuda
+def test_fit_streamed_reuses_both_buffers_on_card(cuda_device, tmp_path, monkeypatch):
+    """Four shards of one group through the two device buffers (each reused
+    twice per epoch, two epochs), bfloat16: every window once per epoch,
+    every step through the conv kernel, each shard's copy timed, the state
+    bit for bit that of the same steps on the device-resident corpus
+    (``resident_replay``); one shard equals ``fit_device_data`` on the
+    card bit for bit."""
+    from ai_path_tracer_denoiser_tpu_torch.data import SequenceDataset
+    from ai_path_tracer_denoiser_tpu_torch.models.export import sorted_leaves
+    from ai_path_tracer_denoiser_tpu_torch.train import (device_data, fit_device_data,
+                                                         init_train_state, stream_data)
+    ds = SequenceDataset(*_stream_corpus(tmp_path), None, sequence_length=3, crop=True,
+                         crop_size=32)
+    mopt = ModelOptions(widths=(8, 8, 8, 8, 8))
+    topt = TrainOptions(batch_size=2, sequence_length=3, crop_size=32, epochs=2,
+                        checkpoint_every_epochs=10)
+
+    def state0():
+        return init_train_state(torch.Generator().manual_seed(0), mopt, topt, device=cuda_device)
+
+    def assert_equal(a, b):
+        for tree in ("params", "bn_state"):
+            for (path, la), (_, lb) in zip(sorted_leaves(getattr(a, tree)),
+                                           sorted_leaves(getattr(b, tree))):
+                assert torch.equal(la, lb), tree + "/" + "/".join(path)
+
+    seen, orig = [], device_data.epoch_crops
+    monkeypatch.setattr(device_data, "epoch_crops", lambda epoch, idxs, *a: seen.append(
+        (epoch, [int(i) for i in idxs])) or orig(epoch, idxs, *a))
+    timings = []
+    before = conv_kernel.KERNEL.launches
+    out = stream_data.fit_streamed(state0(), ds, topt, shard_frames=4, model_options=mopt,
+                                   timings=timings)
+    torch.cuda.synchronize()
+    assert out.step == 16 and len(timings) == 8
+    for epoch in (0, 1):
+        assert sorted(i for e, idxs in seen if e == epoch for i in idxs) == list(range(16))
+    assert conv_kernel.KERNEL.launches - before == 16 * (3 * 28 + 3 * 28 - 3)
+    assert all(t["upload_ms"] > 0 and t["exposed_ms"] >= 0 and t["steps_ms"] > 0
+               for t in timings)
+    assert all(torch.isfinite(leaf).all() for _, leaf in sorted_leaves(out.params))
+    monkeypatch.setattr(device_data, "epoch_crops", orig)
+    assert_equal(out, resident_replay(state0(), ds, topt, mopt, 4))
+    single = stream_data.fit_streamed(state0(), ds, topt, shard_frames=16, model_options=mopt)
+    assert_equal(single, fit_device_data(state0(), ds, topt, model_options=mopt))
+
+
+@pytest.mark.cuda
+def test_interactive_emit_pipeline_on_card(cuda_device, tmp_path):
+    """``interactive`` on the card at 64x64, 3 frames: each frame written
+    one behind through the page-locked buffers equals the frame rendered
+    and denoised synchronously on the card, bit for bit; one frame's
+    dispatch makes no host sync (``set_sync_debug_mode("error")``)."""
+    from ai_path_tracer_denoiser_tpu_torch.app.cli import _load_scene_scaled, main
+    from ai_path_tracer_denoiser_tpu_torch.models import (apply_frame_fast_padded, init_hidden,
+                                                          load_model, model_options_from_meta,
+                                                          prepare_inference)
+    from ai_path_tracer_denoiser_tpu_torch.render import render_gbuffer_frame
+    from ai_path_tracer_denoiser_tpu_torch.scene.camera import (orbit_camera,
+                                                                orbit_params_from_camera)
+    model = str(REPO / "artifacts" / "denoiser_multiscene.npz")
+    k1, k2 = cuda_backend.KERNEL.launches, conv_kernel.KERNEL.launches
+    records = main(["interactive", str(REPO / "scenes" / "cornell_box.txt"), "--res", "64",
+                    "--frames", "3", "--dphi", "0.1", "--model", model, "--save-arrays",
+                    "--out-dir", str(tmp_path)])
+    assert cuda_backend.KERNEL.launches - k1 == 3 and conv_kernel.KERNEL.launches - k2 == 84
+    scene = _load_scene_scaled(str(REPO / "scenes" / "cornell_box.txt"), cuda_device, 64)
+    params, bn, meta = load_model(model, device=cuda_device)
+    mopts = model_options_from_meta(meta)
+    folded = prepare_inference(params, bn, mopts)
+    hidden = init_hidden(1, 64, 64, mopts, dtype=torch.bfloat16, device=cuda_device)
+    phi, theta, zoom = orbit_params_from_camera(scene.camera)
+    for frame, rec in enumerate(records):
+        if frame:
+            phi += 0.1
+        fscene = dataclasses.replace(scene, camera=orbit_camera(scene.camera, phi, theta, zoom))
+        _, gbuf, _ = render_gbuffer_frame(fscene)
+        y, hidden = apply_frame_fast_padded(folded, gbuf.permute(1, 2, 0)[None], hidden, mopts)
+        base = rec["path"][:-len(".png")]
+        np.testing.assert_array_equal(np.load(base + "_gbuffer.npy"), gbuf.cpu().numpy())
+        np.testing.assert_array_equal(np.load(base + "_denoised.npy"), y[0].cpu().numpy())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, gbuf, _ = render_gbuffer_frame(scene)
+        apply_frame_fast_padded(folded, gbuf.permute(1, 2, 0)[None], hidden, mopts)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

@@ -85,3 +85,84 @@ def test_read_png_refuses_a_filter_type_that_does_not_exist(tmp_path):
                 + _chunk(b"IDAT", zlib.compress(bytes(raw))) + _chunk(b"IEND", b""))
     with pytest.raises(ValueError, match="filter 5"):
         read_png(path)
+
+
+def _hdr_pixels(seed):
+    """Seeded (H, W, 3) radiance with zeros, values under 1e-32, over 1."""
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0, 1, (11, 7, 3)).astype(np.float32)
+    img[0] = 0.0                                       # black row
+    img[1, :, :] = 1e-33                               # below the RGBE threshold
+    img[2, :3] = rng.uniform(1, 300, (3, 3))           # over 1
+    img[3, 1] = [0.0, 5e-33, 2e-32]                    # one channel just over it
+    img[4] = rng.uniform(0, 1e-5, (7, 3))              # tiny
+    return img
+
+
+@pytest.mark.parametrize("name", ["frame.hdr", "frame"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_save_hdr_writes_the_jax_bytes(tmp_path, name, seed):
+    from ai_path_tracer_denoiser_tpu.utils.imageio import save_hdr as jax_save_hdr
+    from ai_path_tracer_denoiser_tpu_torch.utils import save_hdr
+    img = _hdr_pixels(seed)
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "torch").mkdir()
+    want = jax_save_hdr(str(tmp_path / "jax" / name), img)
+    got = save_hdr(str(tmp_path / "torch" / name), img)
+    assert got.endswith("frame.hdr") and want.endswith("frame.hdr")
+    data = open(got, "rb").read()
+    assert data == open(want, "rb").read()
+    assert data.startswith(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 11 +X 7\n")
+    rgbe = np.frombuffer(data[-11 * 7 * 4:], np.uint8).reshape(11, 7, 4)
+    assert (rgbe[0] == 0).all() and (rgbe[1] == 0).all() and rgbe[2, 0, 3] > 128
+
+
+def decode_rgbe(path):
+    """A flat RGBE .hdr -> (H, W, 3) float32, each mantissa taken at the
+    middle of its step (Radiance's decode): within 2**-8 of each pixel's
+    largest channel of what ``save_hdr`` was given."""
+    data = open(path, "rb").read()
+    head, _, rest = data.partition(b"\n\n")
+    assert head.startswith(b"#?RADIANCE")
+    dims, _, body = rest.partition(b"\n")
+    _, h, _, w = dims.split()
+    rgbe = np.frombuffer(body, np.uint8).reshape(int(h), int(w), 4).astype(np.float64)
+    scale = np.where(rgbe[..., 3] > 0, np.ldexp(1.0, rgbe[..., 3].astype(int) - 136), 0.0)
+    return ((rgbe[..., :3] + 0.5) * scale[..., None]).astype(np.float32)
+
+
+def test_render_hdr_and_gbuffer_match_the_jax_cli(tmp_path):
+    """``render --hdr --save-gbuffer`` at 32x32 through both CLIs: the HDR
+    header equal, its pixel bytes equal where the two images are bitwise
+    equal (radiance is, ROADMAP C), the G-buffer (10, H, W) within the
+    render bar (isclose(1e-5, 1e-5) on >= 99.8% of pixels)."""
+    from ai_path_tracer_denoiser_tpu.app.cli import main as jax_main
+    from ai_path_tracer_denoiser_tpu_torch.app.cli import main
+    argv = ["render", "scenes/cornell_box.txt", "--res", "32", "--spp", "2",
+            "--hdr", "--save-gbuffer", "--platform", "cpu"]
+    jax_main(argv + ["--out", str(tmp_path / "jax.png")])
+    written = main(argv + ["--out", str(tmp_path / "torch.png")])
+    assert written == {"png": str(tmp_path / "torch.png"), "hdr": str(tmp_path / "torch.hdr"),
+                       "gbuffer": str(tmp_path / "torch_gbuffer.npy")}
+    got, want = open(written["hdr"], "rb").read(), open(tmp_path / "jax.hdr", "rb").read()
+    assert len(got) == len(want) and got[:-32 * 32 * 4] == want[:-32 * 32 * 4]
+    img_t, img_j = decode_rgbe(written["hdr"]), decode_rgbe(str(tmp_path / "jax.hdr"))
+    png_t, png_j = read_png(written["png"]), jax_read_png(str(tmp_path / "jax.png"))
+    same = (png_t == png_j).all(axis=-1)
+    assert same.mean() >= 0.99
+    rgbe_t = np.frombuffer(got[-32 * 32 * 4:], np.uint8).reshape(32, 32, 4)
+    rgbe_j = np.frombuffer(want[-32 * 32 * 4:], np.uint8).reshape(32, 32, 4)
+    equal = (rgbe_t == rgbe_j).all(axis=-1)
+    assert equal.mean() >= 0.99, equal.mean()
+    # the HDR holds the displayed (un-mirrored) image to RGBE precision
+    from ai_path_tracer_denoiser_tpu_torch.app.cli import _load_scene_scaled
+    from ai_path_tracer_denoiser_tpu_torch.render import render
+    image = render(_load_scene_scaled("scenes/cornell_box.txt", "cpu", 32), num_iterations=2)[0]
+    image = image.flip(1).numpy()
+    assert np.all(np.abs(img_t - image) <= 2 ** -8 * image.max(axis=-1, keepdims=True) + 1e-30)
+    assert np.abs(img_j - img_t)[equal].max() == 0.0
+    gt, gj = np.load(written["gbuffer"]), np.load(str(tmp_path / "jax_gbuffer.npy"))
+    assert gt.shape == gj.shape == (10, 32, 32) and gt.dtype == np.float32
+    ok = np.isclose(gt[3:], gj[3:], rtol=1e-5, atol=1e-5).all(axis=0)
+    assert ok.mean() >= 0.998, ok.mean()
+    np.testing.assert_array_equal(gt[:3], gj[:3])

@@ -135,8 +135,23 @@ def test_load_model_and_padded_apply():
     y, hidden = apply_frame_fast_padded(folded, x, hidden, mopts)
     assert y.shape == (1, 40, 50, 3) and torch.isfinite(y).all()
     assert hidden["enc1"].shape == (1, 64, 64, 32)
-    with pytest.raises(NotImplementedError):
-        prepare_inference(params, bn_state, mopts, pad_multiple=16)
+    # the same network with its channels padded to multiples of 16: the
+    # bfloat16 bar of the whole network (relative L2 < 2e-2), padded
+    # hidden lanes exactly zero
+    padded = prepare_inference(params, bn_state, mopts, pad_multiple=16)
+    assert padded["enc2"]["conv1"]["w"].shape == (3, 3, 32, 48)
+    assert padded["dec1"]["conv1"]["w"].shape == (3, 3, 64, 3)       # 3 out stays
+    pad_opts = ModelOptions(widths=(32, 48, 64, 80, 112))
+    hp = init_hidden(1, 64, 64, pad_opts, dtype=torch.bfloat16)
+    h0 = init_hidden(1, 64, 64, mopts, dtype=torch.bfloat16)
+    for frame in _frames(2, 40, 50):
+        yp, hp = apply_frame_fast_padded(padded, torch.from_numpy(frame), hp, pad_opts)
+        y0, h0 = apply_frame_fast_padded(folded, torch.from_numpy(frame), h0, mopts)
+        assert yp.shape == (1, 40, 50, 3) and torch.isfinite(yp).all()
+        rel = float(torch.linalg.norm(yp - y0) / torch.linalg.norm(y0))
+        assert rel < 2e-2, rel
+        for k, c in zip(("enc2", "enc3", "enc4", "enc5"), (43, 57, 76, 101)):
+            assert not hp[k][..., c:].any(), k
 
 
 def test_random_init_tree_matches_jax_shapes():
@@ -263,3 +278,47 @@ def test_rows_plan_fills_the_card_and_fits_the_sm(r, c, co):
     if r >= 400:                # the large layers: two blocks on an SM at least
         assert 2 * plan.smem <= 232448
 
+
+
+@pytest.mark.parametrize("multiple", [8, 16])
+def test_pad_channels_matches_jax_leaf_for_leaf(multiple):
+    """``pad_channels`` on a network with odd widths folded by JAX and
+    carried across: every padded leaf equal to JAX's, bit for bit.
+    ``prepare_inference(pad_multiple=)`` on parameters carried across by
+    ``params_from_numpy``: the same shapes and dtypes as JAX's, the values
+    within the fold's last-bit difference (float32) rounded to bfloat16."""
+    from ai_path_tracer_denoiser_tpu.config import ModelOptions as JaxModelOptions
+    from ai_path_tracer_denoiser_tpu.models import init_autoencoder as jax_init
+    widths = (5, 7, 9, 11, 13)
+    # the JAX tree's shapes, filled from a numpy seed (running statistics
+    # away from (0, 1), so the fold is not the identity)
+    shapes = jax.eval_shape(lambda k: jax_init(k, JaxModelOptions(widths=widths)),
+                            jax.random.PRNGKey(3))
+    r = np.random.default_rng(3)
+    jp, js = (jax.tree_util.tree_map(lambda a: jnp.asarray(
+        r.uniform(lo, 2.0, a.shape).astype(np.float32)), tree)
+        for lo, tree in ((-1.0, shapes[0]), (0.5, shapes[1])))
+    folded = jax_inf.fold_batchnorm(jp, js)
+    jpad = jax_inf.pad_channels(folded, multiple)
+    tpad = inference.pad_channels(jax.tree_util.tree_map(
+        lambda a: torch.from_numpy(np.array(a)), folded), multiple)
+    jleaves = jax.tree_util.tree_flatten_with_path(jpad)[0]
+    assert len(jleaves) == sum(len(leaf) for blk in tpad.values() for leaf in blk.values())
+    for path, want in jleaves:
+        got = tpad[path[0].key][path[1].key][path[2].key]
+        assert tuple(got.shape) == want.shape, path
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    up = -(-13 // multiple) * multiple
+    assert tpad["enc5"]["conv2"]["w"].shape == (3, 3, 2 * up, up)
+    assert tpad["dec1"]["conv2"]["w"].shape == (3, 3, 3, 3)
+    mopts = ModelOptions(widths=widths)
+    tp, ts = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                               jax.tree_util.tree_map(np.asarray, js), device="cpu")
+    jprep = jax_inf.prepare_inference(jp, js, pad_multiple=multiple)
+    tprep = prepare_inference(tp, ts, mopts, pad_multiple=multiple)
+    for path, want in jax.tree_util.tree_flatten_with_path(jprep)[0]:
+        got = tprep[path[0].key][path[1].key][path[2].key]
+        bf16 = path[-1].key == "w"
+        assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   rtol=2 ** -8 if bf16 else 1e-6, atol=0)
