@@ -138,10 +138,13 @@ def k1_plan(n: int, sm_count: int, fit_per_sm: int, threads: int = K1_THREADS,
     return K1Plan(n=n, blocks=blocks, threads=threads, chunk=chunk)
 
 
-def pallas_eligible(scene: Scene, options: RenderOptions) -> bool:
+def pallas_eligible(scene: Scene, options: RenderOptions,
+                    differentiable: bool = False) -> bool:
     """Whether the megakernel takes this scene and these options: a packed
-    scene larger than a block's shared memory is not taken."""
-    return (scene.mesh.num_faces <= MESH_BAKE_MAX_FACES
+    scene larger than a block's shared memory is not taken, nor a
+    differentiable render (the kernel has no backward pass)."""
+    return (not differentiable
+            and scene.mesh.num_faces <= MESH_BAKE_MAX_FACES
             and scene_home_bytes(scene.geoms.count, scene.materials.count,
                                  scene.mesh.num_faces) <= SCENE_HOME_BYTES
             and not options.sort_material
@@ -193,7 +196,7 @@ def render_cuda_plain(scene: Scene, options: RenderOptions, num_iterations: int,
                       ) -> RenderLoopState:
     """The megakernel's plain PyTorch version: the wavefront iteration loop."""
     for _ in range(num_iterations):
-        state = trace_iteration(scene, options, state, pixel_offset)
+        state = trace_iteration(scene, options, state, pixel_offset=pixel_offset)
     return state
 
 

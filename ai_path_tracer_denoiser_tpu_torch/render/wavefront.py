@@ -19,6 +19,12 @@ same way after each shade (pathtrace.cu:508-510), ``cache_first_bounce``
 reuses iteration 1's depth-0 intersection (pathtrace.cu:466-476), and
 ``motion_blur`` moves the geoms every 4th iteration and carries them in the
 state; the megakernel takes none of the three.
+
+``differentiable`` renders keep to operations autograd can go through: the
+mesh takes the dense scan (the BVH kernels have no backward pass) and no
+tensor that autograd saved is written in place, so a gradient reaches the
+materials, the geoms' matrices, the mesh vertices and the camera
+(render/edge_grad.py builds its interior terms on this).
 """
 from __future__ import annotations
 
@@ -79,7 +85,9 @@ def generate_camera_rays_v(camera: Camera, iteration, options: RenderOptions,
     """Per-pixel primary rays with optional AA jitter (pathtrace.cu:155-182).
 
     The jitter is seeded with depth 0 (see the JAX package's docstring for
-    why that is exact parity with the reference).
+    why that is exact parity with the reference).  The camera's entries
+    enter as 0-dim tensors, so a gradient reaches them; the planes are the
+    same float32 operations as with python floats, bit for bit.
     """
     w, h = camera.resolution
     x = (pixel_ids % w).to(torch.float32)
@@ -90,17 +98,17 @@ def generate_camera_rays_v(camera: Camera, iteration, options: RenderOptions,
         jy = u[1] - 0.5
     else:
         jx = jy = torch.zeros_like(x)
-    plx, ply = camera.pixel_length.tolist()
+    plx, ply = camera.pixel_length.unbind()
     px = plx * (x - w * 0.5 + jx)
     py = ply * (y - h * 0.5 + jy)
-    vx, vy, vz = camera.view.tolist()
-    rx, ry, rz = camera.right.tolist()
-    ux, uy, uz = camera.up.tolist()
+    vx, vy, vz = camera.view.unbind()
+    rx, ry, rz = camera.right.unbind()
+    ux, uy, uz = camera.up.unbind()
     direction = Vec3(vx - rx * px - ux * py,
                      vy - ry * px - uy * py,
                      vz - rz * px - uz * py).normalized()
     ones = torch.ones_like(x)
-    cx, cy, cz = camera.position.tolist()
+    cx, cy, cz = camera.position.unbind()
     origin = Vec3(ones * cx, ones * cy, ones * cz)
     return origin, direction
 
@@ -173,10 +181,12 @@ def _maybe_sort_by_material(options: RenderOptions, isect_mat, alive, carry):
 
 
 def trace_iteration(scene: Scene, options: RenderOptions,
-                    state: RenderLoopState, pixel_offset: int = 0
-                    ) -> RenderLoopState:
+                    state: RenderLoopState, differentiable: bool = False,
+                    pixel_offset: int = 0) -> RenderLoopState:
     """One full 1-spp path-trace iteration (pathtrace.cu:422-528).
 
+    ``differentiable``: keep the mesh on the dense scan, which autograd can
+    go through (no BVH kernel, no carry sort); the image is the same.
     ``pixel_offset``: first global pixel id of this state's tile (0 for a
     whole frame); the RNG and the pixel split use global ids.
     """
@@ -197,7 +207,8 @@ def trace_iteration(scene: Scene, options: RenderOptions,
     color = Vec3.full_like(ray_d.x, 1.0)
     remaining = torch.full((n,), depth_max, dtype=torch.int32, device=dev)
 
-    use_bvh = options.mesh_bvh
+    # the BVH kernels have no backward pass: differentiable renders scan
+    use_bvh = options.mesh_bvh and not differentiable
     mesh_kwargs = dict(ray_culling=options.ray_culling, use_bvh=use_bvh,
                        kernel_impl=options.mesh_kernel_impl)
 
@@ -313,42 +324,45 @@ def current_image(state: RenderLoopState, resolution: Tuple[int, int]) -> torch.
     return (state.accum.to(torch.float32) / it).T.reshape(h, w, 3)
 
 
-def _resolve_backend(scene: Scene, options: RenderOptions) -> str:
+def _resolve_backend(scene: Scene, options: RenderOptions,
+                     differentiable: bool = False) -> str:
     """Pick "pallas" (the CUDA megakernel) or "xla" (this plain wavefront).
 
     "auto" takes the megakernel when the scene and options are eligible and
     the scene lives on the card; "pallas" forces it and raises when
     ineligible (on CPU tensors the megakernel's wrapper runs its plain
-    version).
+    version).  A differentiable render is never eligible.
     """
     from .cuda_backend import pallas_eligible
     if options.backend == "xla":
         return "xla"
-    eligible = pallas_eligible(scene, options)
+    eligible = pallas_eligible(scene, options, differentiable)
     if options.backend == "pallas":
         if not eligible:
             raise ValueError("backend='pallas' but scene/options ineligible "
                              "(mesh over 64 faces, the packed scene exceeds the "
                              "megakernel's shared memory, sort_material, "
-                             "cache_first_bounce, motion_blur or bfloat16 "
-                             "accumulation)")
+                             "cache_first_bounce, motion_blur, bfloat16 "
+                             "accumulation or differentiable render)")
         return "pallas"
     return "pallas" if eligible and scene.device.type == "cuda" else "xla"
 
 
 def render(scene: Scene, options: RenderOptions = RenderOptions(),
            num_iterations: Optional[int] = None,
-           state: Optional[RenderLoopState] = None):
+           state: Optional[RenderLoopState] = None,
+           differentiable: bool = False):
     """Render ``num_iterations`` spp (default: the scene's ITERATIONS).
 
     Returns (image (H,W,3), gbuffer (10,H,W), final state).  Iterations run
     in launches of at most ``options.iters_per_dispatch`` (default 64).
+    ``differentiable``: the plain wavefront on its differentiable path.
     """
     if num_iterations is None:
         num_iterations = scene.iterations
     if state is None:
         state = init_render_state(scene, options)
-    backend = _resolve_backend(scene, options)
+    backend = _resolve_backend(scene, options, differentiable)
     per_dispatch = options.iters_per_dispatch or 64
     remaining = int(num_iterations)
     while remaining > 0:
@@ -358,7 +372,7 @@ def render(scene: Scene, options: RenderOptions = RenderOptions(),
             state = render_cuda(scene, options, k, state)
         else:
             for _ in range(k):
-                state = trace_iteration(scene, options, state)
+                state = trace_iteration(scene, options, state, differentiable)
         remaining -= k
     image = current_image(state, scene.camera.resolution)
     gbuffer = assemble_gbuffer(state, scene.camera.resolution, options)

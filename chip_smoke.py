@@ -56,7 +56,16 @@ and the G-buffer against `render`); `randomize`, `datagen --variants 2`
 (3 scenes x 8 frames at 256x256) and `fit_streamed` over that corpus, one
 group per shard (every window once, the copy times and how much of them the
 steps hid, one shard bit for bit `fit_device_data`); the denoiser with
-`prepare_inference(pad_multiple=8)` against the default.  The conv
+`prepare_inference(pad_multiple=8)` against the default.  The
+edge-gradient slice (`render/edge_grad.py`): every gradient function at
+the JAX defaults (512 edge samples, 128 iterations) on cornell at 800x800
+(the sphere, the ceiling light, the camera) and on the icosahedron scene,
+the blob's boundary term, with no kernel launch (these renders keep the
+plain wavefront under autograd), the interior terms' peak memory, the
+shoelace area oracle, the batched `mean_radiance` bit for bit its loop,
+the card's gradients against the CPU's on the 64x64 edge scenes, and a
+full-width backward that is not zero (the 800x800 edge box shaded by
+|normal|) against the CPU's.  The conv
 kernels are checked on the frame's 28 shapes (bfloat16, float32 and batched
 input; the row-band kernel also on a zero-bordered input, odd and aligned
 Cin), both also at shapes the frame never reaches (Co = 202, 3 -> 3, ragged
@@ -711,6 +720,311 @@ def phase_pad_channels(kernels, smi, dev):
             f"pad_channels launches {[v['launches'] for v in nets.values()]}")
     require(rel < 2e-2 and close >= 0.99 and np.isfinite(a).all() and pad_zero,
             f"padded denoise vs default: rel L2 {rel}, close {close}")
+
+
+# The sphere-before-a-wall scene of the JAX package's edge-gradient tests
+# (tests/test_edge_grad.py), with the cube and mesh variants: radiances
+# there are deterministic (a black object before an emissive wall)
+EDGE_SCENE = """MATERIAL 0
+RGB         1 1 1
+SPECEX      0
+SPECRGB     0 0 0
+REFL        0
+REFR        0
+REFRIOR     0
+EMITTANCE   2
+
+MATERIAL 1
+RGB         0 0 0
+SPECEX      0
+SPECRGB     0 0 0
+REFL        0
+REFR        0
+REFRIOR     0
+EMITTANCE   0
+
+CAMERA
+RES         {res} {res}
+FOVY        45
+ITERATIONS  8
+DEPTH       3
+FILE        edge_test
+EYE         0 0 6
+LOOKAT      0 0 0
+UP          0 1 0
+
+OBJECT 0
+cube
+material 0
+TRANS       0 0 -6
+ROTAT       0 0 0
+SCALE       60 60 0.2
+
+{object}
+"""
+EDGE_OBJECTS = {
+    "sphere": "OBJECT 1\nsphere\nmaterial 1\nTRANS       1.2 0.4 0\nROTAT       0 0 0\n"
+              "SCALE       2 2 2\n",
+    "box": "OBJECT 1\ncube\nmaterial 1\nTRANS       1.2 0.4 0\nROTAT       20 35 10\n"
+           "SCALE       1.6 1.2 1.4\n",
+    "mesh": "MESH 0\nPATH        assets/icosahedron.obj\nmaterial 1\nTRANS       1.2 0.4 0\n"
+            "ROTAT       15 30 0\nSCALE       1.8 1.8 1.8\n"}
+ICO_SCENE = os.path.join(ROOT, "scenes", "cornell_mesh_icosahedron.txt")
+EDGE_SPHERE, EDGE_LIGHT = 6, 0  # cornell_box.txt: the sphere; the ceiling light (a cube)
+
+
+def phase_edge_grad_path(kernels, smi, dev):
+    """The edge-sampled geometry gradients (render/edge_grad.py) at the JAX
+    defaults (n_edge 512, spp 128) on cornell_box.txt at 800x800, depth 8,
+    and on cornell_mesh_icosahedron.txt: no kernel launches, finite (3,)
+    results on the card, each call three times (median and spread, and
+    the host's garbage-collection pauses within each run); one
+    profiled sphere gradient (its kernel launches and the card's busy
+    time); the interior terms' time and peak memory with the allocator's
+    state around them, before and after emptying its cache; a full-width
+    backward that is not zero (the edge box scene at 800x800 shaded by
+    |normal|) held to the CPU port; the blob's boundary term alone; the
+    shoelace area oracle; the batched ``mean_radiance`` against its loop
+    bit for bit; the card against the CPU port on the 64x64 edge scenes."""
+    import dataclasses
+    import gc
+
+    import numpy as np
+    import torch
+
+    from ai_path_tracer_denoiser_tpu_torch.config import RenderOptions
+    from ai_path_tracer_denoiser_tpu_torch.render import edge_grad as eg
+    from ai_path_tracer_denoiser_tpu_torch.scene import load_scene, parse_scene_text
+    t_phase = time.time()
+    reps = 3
+    reserved_at_start = torch.cuda.memory_reserved() / 2 ** 30
+    opts = RenderOptions()
+    normal_view = RenderOptions(mesh_normal_view=True)
+    cornell = load_scene(SCENE, device=dev)
+    ico = load_scene(ICO_SCENE, device=dev)
+    blob = load_scene(MESH_SCENES["blob"], device=dev)
+    box = {where: parse_scene_text(EDGE_SCENE.format(res=800, object=EDGE_OBJECTS["box"]),
+                                   base_dir=ROOT, device=where) for where in (dev, "cpu")}
+
+    def events_ms(fn):
+        """(result, ms) of one call between two CUDA events."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def spread(times):
+        return {"median": float(np.median(times)), "min": min(times), "max": max(times),
+                "each": times}
+
+    # the host's garbage collector: its pauses during each timed call
+    gc_ms, gc_start = [0.0], [0.0]
+
+    def gc_clock(stage, info):
+        if stage == "start":
+            gc_start[0] = time.perf_counter()
+        else:
+            gc_ms[0] += (time.perf_counter() - gc_start[0]) * 1e3
+
+    def timed_run(fn):
+        """(result, ms, ms of garbage collection within it)."""
+        before = gc_ms[0]
+        out, t = events_ms(fn)
+        return out, t, gc_ms[0] - before
+
+    def box_interior(sc):
+        """The interior term of the edge box's rotation, shaded by |normal|:
+        the radiance depends on the rotation, so autograd goes back."""
+        return eg._interior_gradient(sc, normal_view, lambda d: dataclasses.replace(
+            sc, geoms=eg.retrs_geom(sc.geoms, 1, d, torch.zeros(3, device=sc.device))))
+
+    calls = {
+        "translation_sphere": lambda: eg.translation_gradient(cornell, opts, EDGE_SPHERE),
+        "translation_sphere_boundary": lambda: eg.translation_gradient(
+            cornell, opts, EDGE_SPHERE, include_interior=False),
+        "rotation_light": lambda: eg.rotation_gradient(cornell, opts, EDGE_LIGHT),
+        "scale_light": lambda: eg.scale_gradient(cornell, opts, EDGE_LIGHT),
+        "camera": lambda: eg.camera_translation_gradient(cornell, opts),
+        "mesh_icosahedron": lambda: eg.mesh_translation_gradient(ico, opts),
+        "mesh_blob_boundary": lambda: eg.mesh_translation_gradient(
+            blob, opts, include_interior=False),
+        "rotation_edge_box_normal_view": lambda: eg.rotation_gradient(box[dev], normal_view, 1),
+    }
+    # the 64x64 edge scenes, on the card and on the CPU
+    small = {(k, where): parse_scene_text(EDGE_SCENE.format(res=64, object=t), base_dir=ROOT,
+                                          device=where)
+             for k, t in EDGE_OBJECTS.items() for where in (dev, "cpu")}
+    aa_off = RenderOptions(antialias=False)
+    grads, ms = {}, {}
+    reset_launches(kernels)
+    # a small call first pays the libraries' set-up (the solver's, autograd's)
+    _, setup_ms = events_ms(lambda: eg.translation_gradient(small["sphere", dev], aa_off, 1,
+                                                            n_edge=128, spp=2))
+    gc.callbacks.append(gc_clock)
+    for name, fn in calls.items():
+        runs = [timed_run(fn) for _ in range(reps)]
+        grads[name] = [g for g, _, _ in runs]
+        ms[name] = {**spread([t for _, t, _ in runs]), "gc_ms": [c for _, _, c in runs]}
+    launches = nonzero_launches(kernels)
+    # the interior terms alone: time, peak memory, and the caching
+    # allocator's reserve and retries around each run; a second pass after
+    # emptying the allocator's cache.  With the default shading the
+    # radiance does not depend on a geom's move (a product of albedos and
+    # an emittance): autograd records the forward and has nothing to go
+    # back through.  The edge box shaded by |normal| goes back.
+    interior = {
+        "translation_sphere": lambda: eg._interior_gradient(
+            cornell, opts, lambda d: dataclasses.replace(
+                cornell, geoms=eg.translate_geom(cornell.geoms, EDGE_SPHERE, d))),
+        "mesh_icosahedron": lambda: eg._interior_gradient(
+            ico, opts, lambda d: dataclasses.replace(ico, mesh=eg.translate_mesh(ico.mesh, d))),
+        "rotation_edge_box_normal_view": lambda: box_interior(box[dev])}
+    interior_runs = {}
+    reset_launches(kernels)
+    for cache in ("as_left", "emptied"):
+        if cache == "emptied":
+            torch.cuda.empty_cache()
+        for name, fn in interior.items():
+            rows = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                before = torch.cuda.memory_stats()
+                torch.cuda.reset_peak_memory_stats()
+                g, t, collect = timed_run(fn)
+                after = torch.cuda.memory_stats()
+                rows.append({
+                    "ms": t, "gc_ms": collect,
+                    "peak_gib_above_start": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                    "reserved_gib_before": before.get("reserved_bytes.all.current", 0) / 2 ** 30,
+                    "reserved_gib_after": after.get("reserved_bytes.all.current", 0) / 2 ** 30,
+                    "device_mallocs": after.get("num_device_alloc", 0)
+                    - before.get("num_device_alloc", 0),
+                    "alloc_retries": after.get("num_alloc_retries", 0)
+                    - before.get("num_alloc_retries", 0),
+                    "gradient": g.tolist()})
+            interior_runs[f"{name}:{cache}"] = {
+                "ms": spread([r["ms"] for r in rows]), "runs": rows}
+    gc.callbacks.remove(gc_clock)
+    launches.update(nonzero_launches(kernels))
+    require(not launches, f"edge gradients launched kernels: {launches}")
+    for name, gs in grads.items():
+        for g in gs:
+            require(isinstance(g, torch.Tensor) and g.shape == (3,) and g.device.type == "cuda"
+                    and bool(torch.isfinite(g).all()), f"{name}: {g}")
+    # the full-width backward, held to the CPU port: finite, not zero
+    box_card = torch.tensor(interior_runs["rotation_edge_box_normal_view:as_left"]
+                            ["runs"][0]["gradient"])
+    box_cpu = box_interior(box["cpu"])
+    box_rel = float(((box_card - box_cpu).abs() / box_cpu.abs().clamp_min(1e-6)).max())
+    box_ok = (bool(torch.isfinite(box_card).all()) and float(box_cpu.abs().min()) > 1e-6
+              and float(box_card.abs().min()) > 1e-6 and box_rel <= 1e-3)
+
+    # one sphere gradient under the profiler: its kernel launches and the
+    # card's busy time (the sum of kernel times; the profiler slows the host)
+    profiled = {}
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            eg.translation_gradient(cornell, opts, EDGE_SPHERE)
+            torch.cuda.synchronize()
+        avg = prof.key_averages()
+        busy = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                   for e in avg) / 1e3
+        n_launch = sum(e.count for e in avg if "LaunchKernel" in e.key)
+        median = ms["translation_sphere"]["median"]
+        profiled = {"kernel_launches": n_launch, "device_busy_ms": busy,
+                    "unprofiled_median_ms": median,
+                    "device_idle_share": (max(0.0, 1.0 - busy / median) if busy > 0 else None),
+                    "ms_per_launch": median / n_launch if n_launch else None}
+    except Exception as exc:  # a diagnostic: the phase's checks do not rest on it
+        profiled = {"error": repr(exc)}
+
+    # mean_radiance: the batch against the loop, 512 rays x 32 iterations
+    uv = torch.from_numpy(np.random.default_rng(0).uniform(0, 800, (512, 2))
+                          .astype(np.float32)).to(dev)
+    o, d = eg.rays_through_pixels(cornell.camera, uv)
+    mean_ms = {"batched": [], "loop": []}
+    mean_equal = True
+    for _ in range(reps):
+        batch, t_b = events_ms(lambda: eg.mean_radiance(cornell, opts, o, d, 32))
+        loop, t_l = events_ms(lambda: eg.mean_radiance_loop(cornell, opts, o, d, 32))
+        mean_ms["batched"].append(t_b)
+        mean_ms["loop"].append(t_l)
+        mean_equal = mean_equal and all(torch.equal(a, b) for a, b in zip(batch, loop))
+
+    # the shoelace area oracle (JAX tests/test_edge_grad.py:150), 128x128
+    edge = parse_scene_text(EDGE_SCENE.format(res=128, object=EDGE_OBJECTS["sphere"]),
+                            base_dir=ROOT, device=dev)
+    g_edge = eg.translation_gradient(edge, RenderOptions(antialias=False), 1,
+                                     n_edge=512, spp=2).cpu().numpy()
+    phis = torch.linspace(0, 2 * np.pi, 8193)[:-1].to(dev)
+
+    def area(delta):
+        c = edge.geoms.translation[1] + torch.tensor(delta, device=dev)
+        uv_ = eg.project_to_pixels(eg.silhouette_points_sphere(
+            c, 1.0, edge.camera.position.to(dev), phis), edge.camera)
+        uv_ = uv_.double().cpu().numpy()
+        x0, y0 = uv_[:, 0], uv_[:, 1]
+        return abs(np.sum(x0 * np.roll(y0, -1) - np.roll(x0, -1) * y0)) / 2.0
+
+    oracle = []
+    for axis in range(3):
+        step = [0.0, 0.0, 0.0]
+        step[axis] = 2e-3
+        oracle.append(-2.0 * (area(step) - area([-s for s in step])) / 4e-3 / 128 ** 2)
+    oracle_ok = bool(np.allclose(g_edge, oracle, rtol=0.04, atol=2e-6))
+
+    # the card against the CPU port on the 64x64 edge scenes
+    small_calls = {
+        "translation_sphere": ("sphere", lambda s: eg.translation_gradient(
+            s, aa_off, 1, n_edge=128, spp=2)),
+        "translation_box": ("box", lambda s: eg.translation_gradient(
+            s, aa_off, 1, n_edge=128, spp=2)),
+        "rotation_box": ("box", lambda s: eg.rotation_gradient(s, aa_off, 1, n_edge=128, spp=2)),
+        "scale_sphere": ("sphere", lambda s: eg.scale_gradient(s, aa_off, 1, n_edge=128, spp=2)),
+        "camera_box": ("box", lambda s: eg.camera_translation_gradient(
+            s, aa_off, n_edge=128, spp=2)),
+        "mesh": ("mesh", lambda s: eg.mesh_translation_gradient(
+            s, aa_off, samples_per_edge=8, spp=2))}
+    card_vs_cpu = {}
+    for name, (kind, fn) in small_calls.items():
+        a, b = fn(small[kind, dev]).cpu().numpy(), fn(small[kind, "cpu"]).numpy()
+        card_vs_cpu[name] = float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-6)))
+    emit({"phase": "edge_grad_path", "card": smi, "res": [800, 800], "depth": 8,
+          "n_edge": 512, "spp": 128, "launches": launches,
+          "gradients": {k: v[0].tolist() for k, v in grads.items()},
+          "ms_per_call": ms, "setup_call_ms": setup_ms,
+          "interior": interior_runs,
+          "reserved_gib": {"phase_start": reserved_at_start,
+                           "phase_end": torch.cuda.memory_reserved() / 2 ** 30},
+          "profiled_translation_sphere": profiled,
+          "full_width_backward_edge_box_800": {"card": box_card.tolist(),
+                                               "cpu": box_cpu.tolist(), "max_rel": box_rel},
+          "mean_radiance_512x32": {"batched_ms": spread(mean_ms["batched"]),
+                                   "loop_ms": spread(mean_ms["loop"]),
+                                   "bitwise_equal": mean_equal},
+          "area_oracle": {"estimator": g_edge.tolist(), "oracle": oracle, "ok": oracle_ok},
+          "card_vs_cpu_max_rel": card_vs_cpu,
+          "phase_seconds": time.time() - t_phase,
+          "tolerance": "launches: none during the full-width calls; oracle: rtol 0.04, "
+                       "atol 2e-6 (the JAX test's bar); batched mean_radiance equal to the "
+                       "loop bit for bit; card vs CPU: |a - b| / max(|b|, 1e-6) <= 1e-3 per "
+                       "component on the 64x64 edge scenes and on the 800x800 edge box's "
+                       "interior term, which must exceed 1e-6 per component",
+          "timing": "CUDA events around one call with nothing else queued, each call "
+                    f"{reps} times in a row, after a 64x64 translation_gradient "
+                    "(setup_call_ms: the libraries' set-up); gc_ms: the host's "
+                    "garbage-collection pauses inside each run (gc.callbacks)"})
+    require(mean_equal, "batched mean_radiance differs from the loop")
+    require(oracle_ok, f"area oracle: estimator {g_edge.tolist()} vs {oracle}")
+    require(all(v <= 1e-3 for v in card_vs_cpu.values()), f"card vs CPU {card_vs_cpu}")
+    require(box_ok, f"800x800 edge box interior term: card {box_card.tolist()}, "
+                    f"CPU {box_cpu.tolist()}")
 
 
 def main():
@@ -2201,6 +2515,7 @@ def main():
     phase_render_outputs(cli, kernels, smi, dev)
     phase_variants_stream_path(cli, kernels, smi, dev)
     phase_pad_channels(kernels, smi, dev)
+    phase_edge_grad_path(kernels, smi, dev)
 
     # ---- 11. the card's busy time in one train step (profiler), last ----
     step_busy = busy_ms(lambda: trainer.train_step(state, fixed_x, fixed_y, topt, mopt))

@@ -1236,3 +1236,64 @@ def test_interactive_emit_pipeline_on_card(cuda_device, tmp_path):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_differentiable_render_launches_no_kernel_on_card(cuda_device):
+    """A differentiable cornell iteration on the card runs the plain
+    wavefront (no megakernel launch), meets the render bar against the
+    CPU port's, and carries a camera and a geom gradient that agree with
+    the CPU's to 1e-2 relative (a pixel whose primary hit flips between
+    the two moves the summed depth gradient by about 1/4096)."""
+    from ai_path_tracer_denoiser_tpu_torch.render import edge_grad
+    from ai_path_tracer_denoiser_tpu_torch.render.wavefront import trace_iteration
+
+    def run(scene):
+        pos = scene.camera.position.clone().requires_grad_()
+        delta = torch.zeros(3, device=scene.device, requires_grad=True)
+        s = dataclasses.replace(scene, camera=dataclasses.replace(scene.camera, position=pos),
+                                geoms=edge_grad.translate_geom(scene.geoms, 6, delta))
+        st = trace_iteration(s, RenderOptions(), init_render_state(s), differentiable=True)
+        loss = st.accum.mean() + st.gbuf[3].mean() + st.gbuf[0].mean()
+        grads = torch.autograd.grad(loss, (pos, delta))
+        return st, [g.cpu().numpy() for g in grads]
+
+    launches = [k.launches for k in (cuda_backend.KERNEL, mesh_kernel_v2p.KERNEL)]
+    card, card_grads = run(_scene("cornell_box.txt", cuda_device, depth=3))
+    torch.cuda.synchronize()
+    assert [k.launches for k in (cuda_backend.KERNEL, mesh_kernel_v2p.KERNEL)] == launches
+    cpu, cpu_grads = run(_scene("cornell_box.txt", "cpu", depth=3))
+    g_card = torch.cat([card.accum, card.gbuf]).detach().cpu().reshape(10, RES, RES).numpy()
+    g_cpu = torch.cat([cpu.accum, cpu.gbuf]).detach().reshape(10, RES, RES).numpy()
+    assert (np.isclose(g_card[3:], g_cpu[3:], rtol=1e-5, atol=1e-5).all(axis=0).mean()
+            >= 0.998)
+    rel = abs(g_card[:3].mean() - g_cpu[:3].mean()) / g_cpu[:3].mean()
+    assert rel < 1e-3
+    for gc, gp in zip(card_grads, cpu_grads):
+        assert np.isfinite(gc).all() and np.abs(gc).max() > 0
+        np.testing.assert_allclose(gc, gp, rtol=1e-2, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_translated_blob_through_k4_equals_the_dense_scan_on_card(cuda_device):
+    """``translate_mesh`` moves the blob's hierarchy tables out of place, so
+    K4's packed-face cache (keyed by the table) misses for them: K4 on the
+    moved tables equals the dense scan of the moved mesh bit for bit, after
+    a call on the unmoved tables has filled the cache."""
+    from ai_path_tracer_denoiser_tpu_torch.render import edge_grad
+    from ai_path_tracer_denoiser_tpu_torch.render.wavefront import generate_camera_rays_v
+
+    scene = _scene("cornell_mesh_blob.txt", cuda_device)
+    ids = torch.arange(RES * RES, device=cuda_device)
+    o, d = generate_camera_rays_v(scene.camera, 1, RenderOptions(), ids)
+    for delta in ((0.0, 0.0, 0.0), (0.37, -1.21, 0.58), (-0.2, 0.4, 0.0)):
+        moved = edge_grad.translate_mesh(scene.mesh, torch.tensor(delta, device=cuda_device))
+        launches = mesh_kernel_v2p.KERNEL.launches
+        got = mesh_kernel_v2p.mesh_intersect_bvh_v2p(moved.bvh, o, d)
+        want = tintersect.mesh_intersect_v(moved, o, d)
+        torch.cuda.synchronize()
+        assert mesh_kernel_v2p.KERNEL.launches == launches + 1
+        assert torch.isfinite(want[0]).any()
+        for a, b in zip((got[0], *got[1], *got[2], got[3]),
+                        (want[0], *want[1], *want[2], want[3])):
+            assert torch.equal(a, b), delta
