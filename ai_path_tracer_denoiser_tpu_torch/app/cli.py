@@ -19,8 +19,10 @@ flag under the JAX CLI's name) or ``--device cpu``; on the card the render
 goes through the megakernel (scenes with a mesh over 64 faces: through the
 plain wavefront with the mesh BVH kernels), the denoiser's convs through
 the fused conv kernels, and training's convs through the tile kernel
-forward and backward.  Not ported yet (ROADMAP queue A):
-``train --data-parallel``.
+forward and backward.  ``train --data-parallel`` splits each batch over
+the ranks of a ``torch.distributed`` world (parallel/): run it under
+``torchrun --nproc-per-node N`` (one card per rank, NCCL), or alone as a
+world of one.
 """
 from __future__ import annotations
 
@@ -347,10 +349,16 @@ def cmd_train(args):
     from ..train import (MetricsLogger, checkpoint_epoch, fit, fit_device_data,
                          init_train_state, latest_checkpoint, load_checkpoint,
                          save_checkpoint)
+    mesh = None
     if args.data_parallel:
-        raise NotImplementedError("train --data-parallel (parallel/dp.py) is "
-                                  "not ported yet (ROADMAP queue A item 8)")
-    device = resolve_device(args.device)
+        if args.device_data:
+            raise ValueError("--device-data keeps the whole corpus on one "
+                             "device; it does not split over --data-parallel")
+        from ..parallel.mesh import make_mesh, mesh_device
+        mesh = make_mesh(device=args.device)
+        device = mesh_device(mesh)
+    else:
+        device = resolve_device(args.device)
     topt = TrainOptions(lr=args.lr, epochs=args.epochs,
                         crop_size=args.crop_size, batch_size=args.batch_size)
     mopt = ModelOptions.tpu_friendly() if args.tpu_friendly else ModelOptions()
@@ -375,27 +383,45 @@ def cmd_train(args):
     dataset = SequenceDataset(os.path.join(args.data_dir, "input"),
                               os.path.join(args.data_dir, "gt"),
                               crop=args.crop_size > 0, crop_size=args.crop_size)
-    logger = MetricsLogger(args.log_dir)
+    # one sequence per rank under --data-parallel: the batch is the data size
+    batch_size, group, lead = topt.batch_size, None, True
+    if mesh is not None:
+        import torch.distributed as dist
+
+        from ..parallel.dp import local_batch
+        from ..parallel.mesh import axis_size
+        batch_size, group = axis_size(mesh, "data"), mesh.get_group("data")
+        lead = dist.get_rank() == 0
+        if lead:
+            print(f"data-parallel over {batch_size} devices")
     start_ep = resume_epoch
     if start_ep is None:
-        steps_per_epoch = max(1, len(dataset) // topt.batch_size)
+        steps_per_epoch = max(1, len(dataset) // batch_size)
         start_ep = state.step // steps_per_epoch
-        if state.step:
+        if state.step and lead:
             print(f"warning: checkpoint lacks an epoch record; inferred "
                   f"start epoch {start_ep} from step count (wrong if the "
                   f"corpus or batch size changed)")
+
+    def batches(epoch):
+        for x, y in sequence_batches(dataset, batch_size=batch_size, seed=epoch):
+            yield (x, y) if group is None else local_batch(x, y, mesh)
+
+    # rank 0 alone logs, prints and writes checkpoints
+    logger = MetricsLogger(args.log_dir) if lead else None
     common = dict(epochs=args.epochs, logger=logger, log_every=args.log_every,
-                  checkpoint_fn=lambda s, e: save_checkpoint(args.model_dir, s, e),
+                  checkpoint_fn=(lambda s, e: save_checkpoint(args.model_dir, s, e))
+                  if lead else None,
                   model_options=mopt, start_epoch=start_ep)
+    quiet = contextlib.nullcontext() if lead else contextlib.redirect_stdout(None)
     try:
-        if args.device_data:
-            return fit_device_data(state, dataset, topt, **common)
-        return fit(state,
-                   lambda epoch: sequence_batches(dataset, batch_size=topt.batch_size,
-                                                  seed=epoch),
-                   topt, **common)
+        with quiet:
+            if args.device_data:
+                return fit_device_data(state, dataset, topt, **common)
+            return fit(state, batches, topt, axis_name=group, **common)
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 def _load_any_model(path, norm, device):
@@ -632,7 +658,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--batch-size", type=int, default=1)
     sp.add_argument("--resume", action="store_true")
     sp.add_argument("--data-parallel", action="store_true",
-                    help="not ported yet (ROADMAP queue A)")
+                    help="one sequence per rank of a torch.distributed world "
+                         "(torchrun --nproc-per-node N; alone: a world of one)")
     sp.add_argument("--tpu-friendly", action="store_true",
                     help="the JAX package's widths (32, 48, 64, 80, 104)")
     sp.add_argument("--device-data", action="store_true",

@@ -6,7 +6,10 @@ recurrent hidden states, channel plan 10 -> 32/43/57/76/101 -> ... -> 3.
 ``apply_frame`` / ``apply_sequence`` are the train graph (and the eval
 graph of group-norm models and of ``interactive --parity-denoise``): every
 conv goes through ``layers.conv2d``, i.e. the conv kernel with its
-autograd; norms and LeakyReLUs are plain float32 tensor code.  The deployed
+autograd; norms and LeakyReLUs are plain float32 tensor code.  Both take
+the JAX package's collective arguments (process groups here):
+``axis_name`` for data-parallel training, ``spatial_axis`` for a frame
+whose rows are split over ranks (parallel/).  The deployed
 forward pass with BatchNorm folded away is models/inference.py.
 
   encoder_i : conv -> norm -> LReLU; conv(cat(out1, hidden)) -> LReLU -> norm
@@ -102,66 +105,77 @@ def param_count(params) -> int:
 # Apply
 # ---------------------------------------------------------------------------
 
-def _norm(opts: ModelOptions, params, state, x, train):
+def _norm(opts: ModelOptions, params, state, x, train, axis_name,
+          spatial_axis):
     """BatchNorm (reference parity) or GroupNorm(8).  GroupNorm is stateless:
     the running statistics pass through untouched, so checkpoints keep one
     structure across both modes."""
     if opts.norm == "group":
-        return group_norm(params, x, groups=8, eps=opts.bn_eps), state
+        return group_norm(params, x, groups=8, eps=opts.bn_eps,
+                          spatial_axis=spatial_axis), state
     return batch_norm(params, state, x, train, momentum=opts.bn_momentum,
-                      eps=opts.bn_eps)
+                      eps=opts.bn_eps, axis_name=axis_name)
 
 
-def _down_block(params, state, x, hidden, train, bf16,
-                opts: ModelOptions = ModelOptions()):
+def _down_block(params, state, x, hidden, train, bf16, axis_name=None,
+                spatial_axis=None, opts: ModelOptions = ModelOptions()):
     """Downsample RecurrentBlock forward (:64-70).  Returns (out, new_state)."""
     slope = opts.leaky_slope
-    out1 = conv2d(params["conv1"], x, bf16)
-    out1, s1 = _norm(opts, params["bn1"], state["bn1"], out1, train)
+    out1 = conv2d(params["conv1"], x, bf16, spatial_axis)
+    out1, s1 = _norm(opts, params["bn1"], state["bn1"], out1, train, axis_name,
+                     spatial_axis)
     out1 = leaky_relu(out1, slope)
     h = torch.cat([out1, hidden.to(out1.dtype)], dim=-1)
-    out2 = conv2d(params["conv2"], h, bf16)
+    out2 = conv2d(params["conv2"], h, bf16, spatial_axis)
     out2 = leaky_relu(out2, slope)                # LReLU before BN (:31-32)
-    out2, s2 = _norm(opts, params["bn2"], state["bn2"], out2, train)
-    out2 = conv2d(params["conv3"], out2, bf16)
-    out2, s3 = _norm(opts, params["bn3"], state["bn3"], out2, train)
+    out2, s2 = _norm(opts, params["bn2"], state["bn2"], out2, train, axis_name,
+                     spatial_axis)
+    out2 = conv2d(params["conv3"], out2, bf16, spatial_axis)
+    out2, s3 = _norm(opts, params["bn3"], state["bn3"], out2, train, axis_name,
+                     spatial_axis)
     out2 = leaky_relu(out2, slope)
     return out2, {"bn1": s1, "bn2": s2, "bn3": s3}
 
 
-def _bottleneck_block(params, state, x, hidden, train, bf16,
-                      opts: ModelOptions = ModelOptions()):
+def _bottleneck_block(params, state, x, hidden, train, bf16, axis_name=None,
+                      spatial_axis=None, opts: ModelOptions = ModelOptions()):
     """Bottleneck forward (:75-81); layer2 order Conv->BN->LReLU (:55-62)."""
     slope = opts.leaky_slope
-    out1 = conv2d(params["conv1"], x, bf16)
-    out1, s1 = _norm(opts, params["bn1"], state["bn1"], out1, train)
+    out1 = conv2d(params["conv1"], x, bf16, spatial_axis)
+    out1, s1 = _norm(opts, params["bn1"], state["bn1"], out1, train, axis_name,
+                     spatial_axis)
     out1 = leaky_relu(out1, slope)
     h = torch.cat([out1, hidden.to(out1.dtype)], dim=-1)
-    out2 = conv2d(params["conv2"], h, bf16)
-    out2, s2 = _norm(opts, params["bn2"], state["bn2"], out2, train)
+    out2 = conv2d(params["conv2"], h, bf16, spatial_axis)
+    out2, s2 = _norm(opts, params["bn2"], state["bn2"], out2, train, axis_name,
+                     spatial_axis)
     out2 = leaky_relu(out2, slope)
-    out2 = conv2d(params["conv3"], out2, bf16)
-    out2, s3 = _norm(opts, params["bn3"], state["bn3"], out2, train)
+    out2 = conv2d(params["conv3"], out2, bf16, spatial_axis)
+    out2, s3 = _norm(opts, params["bn3"], state["bn3"], out2, train, axis_name,
+                     spatial_axis)
     out2 = leaky_relu(out2, slope)
     return out2, {"bn1": s1, "bn2": s2, "bn3": s3}
 
 
-def _up_block(params, state, x, train, bf16,
+def _up_block(params, state, x, train, bf16, axis_name=None, spatial_axis=None,
               opts: ModelOptions = ModelOptions()):
     """Upsample RecurrentBlock forward (:38-47, :72-73)."""
     slope = opts.leaky_slope
     x = upsample_nearest_2x(x)
-    y = conv2d(params["conv1"], x, bf16)
-    y, s1 = _norm(opts, params["bn1"], state["bn1"], y, train)
+    y = conv2d(params["conv1"], x, bf16, spatial_axis)
+    y, s1 = _norm(opts, params["bn1"], state["bn1"], y, train, axis_name,
+                  spatial_axis)
     y = leaky_relu(y, slope)
-    y = conv2d(params["conv2"], y, bf16)
-    y, s2 = _norm(opts, params["bn2"], state["bn2"], y, train)
+    y = conv2d(params["conv2"], y, bf16, spatial_axis)
+    y, s2 = _norm(opts, params["bn2"], state["bn2"], y, train, axis_name,
+                  spatial_axis)
     y = leaky_relu(y, slope)
     return y, {"bn1": s1, "bn2": s2}
 
 
 def apply_frame(params, bn_state, x: torch.Tensor, hidden: Dict,
                 train: bool = False, bf16: bool = False,
+                axis_name=None, spatial_axis=None,
                 options: Optional[ModelOptions] = None
                 ) -> Tuple[torch.Tensor, Dict, Dict]:
     """One frame through the autoencoder (AutoEncoder.forward, :120-142).
@@ -169,6 +183,11 @@ def apply_frame(params, bn_state, x: torch.Tensor, hidden: Dict,
     Args:
       x: (N, H, W, 10) G-buffer frame; H, W divisible by 32.
       hidden: dict from ``init_hidden`` (or the previous frame's output).
+      axis_name: the data-parallel process group (BatchNorm statistics
+        averaged over it), or None.
+      spatial_axis: the process group over whose ranks the rows are split
+        (halo convs, GroupNorm statistics averaged over it), or None; x and
+        hidden are then this rank's rows.
       options: norm choice / leaky slope / bn eps+momentum; defaults to the
         reference configuration (BatchNorm, slope 0.1, eps 1e-5, momentum 0.1).
     Returns:
@@ -185,7 +204,8 @@ def apply_frame(params, bn_state, x: torch.Tensor, hidden: Dict,
     for i in range(1, 6):
         name = f"enc{i}"
         out, new_state[name] = _down_block(
-            params[name], bn_state[name], y, hidden[name], train, bf16, opts)
+            params[name], bn_state[name], y, hidden[name], train, bf16,
+            axis_name, spatial_axis, opts)
         new_hidden[name] = out
         y = max_pool_2x2(out)
         # the reference's skip tensors are the *pooled* encoder outputs
@@ -194,7 +214,7 @@ def apply_frame(params, bn_state, x: torch.Tensor, hidden: Dict,
 
     out, new_state["bottleneck"] = _bottleneck_block(
         params["bottleneck"], bn_state["bottleneck"], y, hidden["bottleneck"],
-        train, bf16, opts)
+        train, bf16, axis_name, spatial_axis, opts)
     new_hidden["bottleneck"] = out
     y = out
 
@@ -202,12 +222,13 @@ def apply_frame(params, bn_state, x: torch.Tensor, hidden: Dict,
         name = f"dec{i}"
         y = torch.cat([y, skips[i - 1].to(y.dtype)], dim=-1)
         y, new_state[name] = _up_block(params[name], bn_state[name], y, train,
-                                       bf16, opts)
+                                       bf16, axis_name, spatial_axis, opts)
     return y, new_hidden, new_state
 
 
 def apply_sequence(params, bn_state, x_seq: torch.Tensor,
                    train: bool = False, bf16: bool = False,
+                   axis_name=None, spatial_axis=None,
                    remat: bool = False,
                    options: Optional[ModelOptions] = None):
     """A whole temporal sequence, frame by frame (train.py:70-75 loop).
@@ -237,7 +258,8 @@ def apply_sequence(params, bn_state, x_seq: torch.Tensor,
     hidden = init_hidden(n, h, w, opts, dtype=torch.float32, device=x_seq.device)
 
     def step(x, hidden, state):
-        return apply_frame(params, state, x, hidden, train, bf16, opts)
+        return apply_frame(params, state, x, hidden, train, bf16, axis_name,
+                           spatial_axis, opts)
 
     ys = []
     for j in range(t):

@@ -348,6 +348,29 @@ def _resolve_backend(scene: Scene, options: RenderOptions,
     return "pallas" if eligible and scene.device.type == "cuda" else "xla"
 
 
+def render_iterations(scene: Scene, options: RenderOptions, num_iterations: int,
+                      state: RenderLoopState, backend: str,
+                      differentiable: bool = False,
+                      pixel_offset: int = 0) -> RenderLoopState:
+    """Advance ``state`` by ``num_iterations`` iterations on ``backend``
+    ("pallas": the megakernel, "xla": this plain wavefront), in launches of
+    at most ``options.iters_per_dispatch`` (default 64).  ``pixel_offset``:
+    the first global pixel id of the state's tile (parallel/render_shard.py)."""
+    per_dispatch = options.iters_per_dispatch or 64
+    remaining = int(num_iterations)
+    while remaining > 0:
+        k = min(per_dispatch, remaining)
+        if backend == "pallas":
+            from .cuda_backend import render_cuda
+            state = render_cuda(scene, options, k, state, pixel_offset)
+        else:
+            for _ in range(k):
+                state = trace_iteration(scene, options, state, differentiable,
+                                        pixel_offset)
+        remaining -= k
+    return state
+
+
 def render(scene: Scene, options: RenderOptions = RenderOptions(),
            num_iterations: Optional[int] = None,
            state: Optional[RenderLoopState] = None,
@@ -363,17 +386,8 @@ def render(scene: Scene, options: RenderOptions = RenderOptions(),
     if state is None:
         state = init_render_state(scene, options)
     backend = _resolve_backend(scene, options, differentiable)
-    per_dispatch = options.iters_per_dispatch or 64
-    remaining = int(num_iterations)
-    while remaining > 0:
-        k = min(per_dispatch, remaining)
-        if backend == "pallas":
-            from .cuda_backend import render_cuda
-            state = render_cuda(scene, options, k, state)
-        else:
-            for _ in range(k):
-                state = trace_iteration(scene, options, state, differentiable)
-        remaining -= k
+    state = render_iterations(scene, options, num_iterations, state, backend,
+                              differentiable)
     image = current_image(state, scene.camera.resolution)
     gbuffer = assemble_gbuffer(state, scene.camera.resolution, options)
     return image, gbuffer, state

@@ -27,6 +27,7 @@ import math
 from typing import Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 # Gaussian-ramp frame weights val_j (train.py:77): exp(-(6-j)^2/8) rounded.
@@ -73,20 +74,51 @@ def log_filter(x: torch.Tensor) -> torch.Tensor:
     return y.permute(0, 2, 3, 1)
 
 
-def _max_normalize(x: torch.Tensor) -> torch.Tensor:
+class _AllGather(torch.autograd.Function):
+    """(k,) -> (ranks * k,): every rank's ``x`` in rank order.  Backward:
+    the cotangents summed over the ranks (one all-reduce), of which each
+    rank keeps its own slot: the transpose of ``lax.all_gather``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        k = g.numel() // dist.get_world_size(ctx.group)
+        r = dist.get_rank(ctx.group)
+        return g[r * k:(r + 1) * k], None
+
+
+_all_gather = _AllGather.apply
+
+
+def _max_normalize(x: torch.Tensor, axis_name=None) -> torch.Tensor:
     m = x.amax()
+    if axis_name is not None:
+        # a differentiable max over the ranks: gather every rank's max,
+        # then reduce (the JAX package's pmax has no VJP, so it does the same)
+        m = _all_gather(m.reshape(1), axis_name).amax()
     return torch.where(m != 0, x / m, x)
 
 
-def hfen(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+def hfen(output: torch.Tensor, target: torch.Tensor,
+         axis_name=None) -> torch.Tensor:
     """High-frequency error norm (HFEN, loss.py:68-79).
 
     Gaussian(5, 1.5) depthwise with no padding, then channel-summed LoG,
-    each max-normalized when its max is nonzero, then L1.
+    each max-normalized when its max is nonzero, then L1.  With
+    ``axis_name`` (the data-parallel process group) the normalising max
+    spans its ranks, so sharded training is single-device training.
     """
     g = gaussian_kernel(5, 1.5, device=output.device)
-    grad_t = _max_normalize(log_filter(_depthwise_conv(target, g, 0)))
-    grad_o = _max_normalize(log_filter(_depthwise_conv(output, g, 0)))
+    grad_t = _max_normalize(log_filter(_depthwise_conv(target, g, 0)), axis_name)
+    grad_o = _max_normalize(log_filter(_depthwise_conv(output, g, 0)), axis_name)
     return l1_norm(grad_o, grad_t)
 
 
@@ -99,22 +131,24 @@ def temporal_diff(seq: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros_like(seq[:1]), seq[1:] - seq[:-1]], dim=0)
 
 
-def frame_loss(output, t_output, target, t_target):
+def frame_loss(output, t_output, target, t_target, axis_name=None):
     """(ls, lg, lt) for one frame (loss_func, loss.py:99-104)."""
-    return (l1_norm(output, target), hfen(output, target),
+    return (l1_norm(output, target), hfen(output, target, axis_name),
             l1_norm(t_output, t_target))
 
 
 def sequence_loss(outputs: torch.Tensor, targets: torch.Tensor,
                   w_spatial: float = 0.8, w_gradient: float = 0.1,
                   w_temporal: float = 0.1,
-                  frame_ramp: Tuple[float, ...] = FRAME_RAMP):
+                  frame_ramp: Tuple[float, ...] = FRAME_RAMP,
+                  axis_name=None):
     """Total BPTT loss over a (T, N, H, W, 3) sequence (train.py:76-89).
 
     total = sum_j (ws + r_j)*ls_j + (wg + r_j)*lg_j + (wt + r_j)*lt_j
 
     Returns (total, dict of summed components).  Targets may arrive
     bfloat16; every term is computed in the outputs' dtype (float32).
+    ``axis_name``: the data-parallel process group, for HFEN's max.
     """
     targets = targets.to(outputs.dtype)
     t_out = temporal_diff(outputs)
@@ -125,7 +159,8 @@ def sequence_loss(outputs: torch.Tensor, targets: torch.Tensor,
     total = ls_sum = lg_sum = lt_sum = torch.zeros((), dtype=outputs.dtype,
                                                    device=outputs.device)
     for j in range(t):
-        ls, lg, lt = frame_loss(outputs[j], t_out[j], targets[j], t_tgt[j])
+        ls, lg, lt = frame_loss(outputs[j], t_out[j], targets[j], t_tgt[j],
+                                axis_name)
         r = frame_ramp[j]
         total = total + (w_spatial + r) * ls + (w_gradient + r) * lg + (w_temporal + r) * lt
         ls_sum, lg_sum, lt_sum = ls_sum + ls, lg_sum + lg, lt_sum + lt

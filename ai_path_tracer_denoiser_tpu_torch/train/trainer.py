@@ -7,6 +7,16 @@ Adam with the learning rate injected per step.  The state is a plain
 dataclass of dict-of-tensor trees; a step returns a new state and leaves
 the old one untouched, as the JAX trainer does.
 
+With ``axis_name`` (a ``torch.distributed`` process group: the
+data-parallel ranks, each holding other sequences of the batch) BatchNorm
+and HFEN take their statistics over the ranks, and the gradients and
+metrics are averaged over them with one all-reduce of the flattened
+gradient tree and metrics (the one bucket ``DistributedDataParallel`` would build; it cannot wrap
+this functional parameter tree).  Adam then runs identically on every
+rank, so the parameters stay replicated with no broadcast.  The argument
+comes last, after ``model_options``, so that every positional call of
+these functions keeps its meaning.
+
 Adam has the JAX trainer's settings (b1 0.9, b2 0.999, eps 1e-8 added outside
 the root, no weight decay), written with ``torch._foreach_*`` over the
 parameter leaves in sorted-key order, the order of the JAX package's
@@ -21,6 +31,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ModelOptions, TrainOptions
 from ..models.autoencoder import apply_sequence, init_autoencoder
@@ -69,37 +80,58 @@ def init_train_state(generator: torch.Generator,
 def loss_fn(params, bn_state, inputs, targets,
             train_options: TrainOptions = TrainOptions(),
             bf16: bool = False,
-            model_options: Optional[ModelOptions] = None):
-    """BPTT loss over one batch of sequences.
+            model_options: Optional[ModelOptions] = None,
+            axis_name=None):
+    """BPTT loss over one batch of sequences (this rank's, with
+    ``axis_name``).
 
     inputs: (T, N, H, W, 10) time-major; targets: (T, N, H, W, 3).
     Returns (total, (metrics, new_bn_state)).
     """
     outputs, _, new_bn = apply_sequence(params, bn_state, inputs,
                                         train=True, bf16=bf16,
+                                        axis_name=axis_name,
                                         remat=train_options.remat_frames,
                                         options=model_options)
     total, metrics = sequence_loss(
         outputs, targets, train_options.w_spatial, train_options.w_gradient,
-        train_options.w_temporal, train_options.frame_ramp[:inputs.shape[0]])
+        train_options.w_temporal, train_options.frame_ramp[:inputs.shape[0]],
+        axis_name=axis_name)
     return total, (metrics, new_bn)
 
 
 def loss_and_grads(state: TrainState, inputs, targets,
                    train_options: TrainOptions = TrainOptions(),
-                   model_options: Optional[ModelOptions] = None):
+                   model_options: Optional[ModelOptions] = None,
+                   axis_name=None):
     """(metrics, new_bn_state, gradient tree) of ``loss_fn`` at the state's
-    parameters: one forward over the sequence, one backward."""
+    parameters: one forward over the sequence, one backward.  With
+    ``axis_name`` the gradients and metrics are the means over its ranks."""
     flat = sorted_leaves(state.params)
     leaves = [leaf.detach().requires_grad_(True) for _, leaf in flat]
     params = tree_from_leaves(state.params, leaves)
     total, (metrics, new_bn) = loss_fn(
         params, state.bn_state, inputs, targets, train_options,
-        train_options.bf16_compute, model_options)
-    grads = torch.autograd.grad(total, leaves)
-    metrics = {k: v.detach() for k, v in metrics.items()}
+        train_options.bf16_compute, model_options, axis_name)
+    grads = list(torch.autograd.grad(total, leaves))
+    keys = list(metrics)
+    metrics = [metrics[k].detach() for k in keys]
+    if axis_name is not None:
+        means = _mean_over_ranks(grads + metrics, axis_name)
+        grads, metrics = means[:len(grads)], means[len(grads):]
     new_bn = _tree_map(lambda t: t.detach(), new_bn)
-    return metrics, new_bn, tree_from_leaves(state.params, list(grads))
+    return (dict(zip(keys, metrics)), new_bn,
+            tree_from_leaves(state.params, grads))
+
+
+def _mean_over_ranks(tensors, group):
+    """The means of ``tensors`` over the ranks of ``group``: one sum
+    all-reduce of their flattened concatenation, divided by the size."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    flat = flat / dist.get_world_size(group)
+    return [part.view_as(t) for part, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def adam_update(params, grads, opt_state, lr: float):
@@ -134,11 +166,15 @@ def adam_update(params, grads, opt_state, lr: float):
 
 def train_step(state: TrainState, inputs: torch.Tensor, targets: torch.Tensor,
                train_options: TrainOptions = TrainOptions(),
-               model_options: Optional[ModelOptions] = None
+               model_options: Optional[ModelOptions] = None,
+               axis_name=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One optimization step (forward 7 frames -> single backward -> Adam)."""
+    """One optimization step (forward 7 frames -> single backward -> Adam).
+    ``axis_name``: the data-parallel process group; the returned state is
+    then the same on every rank."""
     metrics, new_bn, grads = loss_and_grads(state, inputs, targets,
-                                            train_options, model_options)
+                                            train_options, model_options,
+                                            axis_name)
     params, opt_state = adam_update(state.params, grads, state.opt_state,
                                     state.lr)
     return TrainState(params=params, bn_state=new_bn, opt_state=opt_state,
@@ -215,7 +251,7 @@ def fit(state: TrainState, data_iter_fn: Callable[..., Iterable],
         epochs: Optional[int] = None,
         logger=None, checkpoint_fn=None, log_every: int = 5,
         model_options: Optional[ModelOptions] = None,
-        start_epoch: int = 0):
+        start_epoch: int = 0, axis_name=None):
     """Epoch loop (train.py:54-112): StepLR per epoch, periodic checkpoints.
 
     ``data_iter_fn()`` must yield (inputs (T,N,H,W,10), targets (T,N,H,W,3))
@@ -223,6 +259,8 @@ def fit(state: TrainState, data_iter_fn: Callable[..., Iterable],
     epoch index: shuffle with it.  Batches go to the device the state's
     parameters live on.  ``start_epoch`` resumes the StepLR schedule
     mid-run (epochs already covered by a loaded checkpoint).
+    ``axis_name``: the data-parallel process group; each batch is then this
+    rank's slice (``parallel.dp.local_batch``).
     """
     try:
         takes_epoch = len(inspect.signature(data_iter_fn).parameters) >= 1
@@ -243,7 +281,7 @@ def fit(state: TrainState, data_iter_fn: Callable[..., Iterable],
         n_steps = 0
         for i, (inputs, targets) in enumerate(staged):
             state, metrics = train_step(state, inputs, targets, train_options,
-                                        model_options)
+                                        model_options, axis_name)
             n_steps = i + 1
             log.step(i, metrics, log_every)
         overall_step += n_steps

@@ -65,7 +65,14 @@ plain wavefront under autograd), the interior terms' peak memory, the
 shoelace area oracle, the batched `mean_radiance` bit for bit its loop,
 the card's gradients against the CPU's on the 64x64 edge scenes, and a
 full-width backward that is not zero (the 800x800 edge box shaded by
-|normal|) against the CPU's.  The conv
+|normal|) against the CPU's.  The parallel slice (`parallel/`) as a
+world of one over NCCL: `train --data-parallel` on the training corpus,
+`render_sharded` of cornell and the blob (bit for bit `render`),
+`denoise_frame_spatial` with the shipped denoiser (against `apply_frame`),
+the data-parallel step bit for bit `train_step`, each rank's render in 4
+tiles (K1 at pixel offsets, the blob's BVH kernel) bit for bit the whole
+frame, and the halo conv through K2 in 4 and 5 row slices against the
+whole conv.  The conv
 kernels are checked on the frame's 28 shapes (bfloat16, float32 and batched
 input; the row-band kernel also on a zero-bordered input, odd and aligned
 Cin), both also at shapes the frame never reaches (Co = 202, 3 -> 3, ragged
@@ -720,6 +727,281 @@ def phase_pad_channels(kernels, smi, dev):
             f"pad_channels launches {[v['launches'] for v in nets.values()]}")
     require(rel < 2e-2 and close >= 0.99 and np.isfinite(a).all() and pad_zero,
             f"padded denoise vs default: rel L2 {rel}, close {close}")
+
+
+# parallel/ on the one card: the render in this many tiles, the halo conv
+# in these many row slices, iterations of the sharded render
+PAR_TILES, PAR_SLICES, PAR_ITERS = 4, (4, 5), 4
+
+
+def phase_parallel_path(cli, kernels, smi, dev, tr):
+    """parallel/ as a world of one over NCCL, then each rank's own work on
+    the one card without collectives.
+
+    The main path (counts zeroed before, read after): ``train
+    --data-parallel`` through ``cli.main`` on the training corpus (one
+    sequence per step, 7-frame 256x256 crops, reference widths, bfloat16;
+    K2's launches per step against the count computed here),
+    ``render_sharded`` of cornell (K1) and of the blob (K4) at 800x800,
+    ``denoise_frame_spatial`` with the shipped denoiser (K2).  Then: the
+    data-parallel step bit for bit ``train_step`` on the fixed batch; both
+    sharded renders bit for bit ``render``; the per-rank render of 4 tiles
+    (K1 at pixel offsets N/4 apart, the blob's BVH kernel per tile),
+    concatenated, bit for bit the whole frame; the halo conv (each row
+    slice extended by its neighbours' rows, through K2, rows 1..h kept)
+    against the whole-frame K2 conv on the 28 activation shapes of the
+    800x800 frame in 4 and 5 slices; ``denoise_frame_spatial`` against
+    ``apply_frame`` and 2 frames of ``denoise_sequence_spatial`` against
+    its frame loop; events and host ms of each entry against its
+    single-process one, and the collectives one call runs.
+    Returns the path's launches per kernel."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ai_path_tracer_denoiser_tpu_torch.config import RenderOptions
+    from ai_path_tracer_denoiser_tpu_torch.models import (apply_frame, init_hidden, layers,
+                                                          load_model, model_options_from_meta)
+    from ai_path_tracer_denoiser_tpu_torch.models.export import sorted_leaves
+    from ai_path_tracer_denoiser_tpu_torch.parallel import (
+        denoise_frame_spatial, denoise_sequence_spatial, make_dp_train_step, make_mesh,
+        render_sharded, shard_batch)
+    from ai_path_tracer_denoiser_tpu_torch.parallel import mesh as par_mesh
+    from ai_path_tracer_denoiser_tpu_torch.parallel.mesh import destroy
+    from ai_path_tracer_denoiser_tpu_torch.parallel.render_shard import render_tile
+    from ai_path_tracer_denoiser_tpu_torch.render import render, render_gbuffer_frame
+    from ai_path_tracer_denoiser_tpu_torch.scene import load_scene
+    from ai_path_tracer_denoiser_tpu_torch.train import trainer
+    t_phase = time.time()
+
+    def counts():
+        return {k.name: k.launches for k in kernels}
+
+    def diff(after, before):
+        return {n: after[n] - before[n] for n in after if after[n] - before[n]}
+
+    # ---- the main path ----
+    dp_dir = os.path.join(tr["train_dir"], "data_parallel")
+    shutil.rmtree(dp_dir, ignore_errors=True)
+    opts = RenderOptions()
+    scenes = {"cornell": load_scene(SCENE, device=dev),
+              "blob": load_scene(MESH_SCENES["blob"], device=dev)}
+    params, bn, meta = load_model(MODEL, device=dev)
+    mopts = model_options_from_meta(meta)
+    _, gbuf, _ = render_gbuffer_frame(scenes["cornell"])
+    frame = gbuf.permute(1, 2, 0)[None].contiguous()
+    torch.cuda.synchronize()
+    reset_launches(kernels)
+    t0 = time.time()
+    dp_final = cli.main(["train", "--data-parallel", "--data-dir", tr["data_dir"],
+                         "--model-dir", os.path.join(dp_dir, "models"),
+                         "--log-dir", os.path.join(dp_dir, "logs"), "--epochs", "1",
+                         "--crop-size", str(TRAIN_CROP)])
+    torch.cuda.synchronize()
+    train_s = time.time() - t0
+    entry = {"train --data-parallel": diff(counts(), {k.name: 0 for k in kernels})}
+    mesh = make_mesh()                       # the world of one the command started
+    sharded = {}
+    for name, scene in scenes.items():
+        before = counts()
+        niter = PAR_ITERS if name == "cornell" else 1
+        sharded[name] = render_sharded(scene, opts, niter, mesh)
+        torch.cuda.synchronize()
+        entry[f"render_sharded {name}"] = diff(counts(), before)
+    before = counts()
+    y_sp, hidden_sp = denoise_frame_spatial(params, bn, frame, mesh)
+    torch.cuda.synchronize()
+    entry["denoise_frame_spatial"] = diff(counts(), before)
+    path_launches = counts()
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            f"world of one over NCCL: {dist.get_backend()} x {dist.get_world_size()}")
+    steps = TRAIN_FRAMES                     # one window per frame, one per step
+    k2_per_step = 28 * TRAIN_SEQ + (28 * TRAIN_SEQ - TRAIN_SEQ)
+    require(dp_final.step == steps, f"data-parallel steps {dp_final.step}")
+    require(entry["train --data-parallel"] == {"conv3x3_act": steps * k2_per_step},
+            f"train --data-parallel launches {entry['train --data-parallel']}, expected "
+            f"{steps} x {k2_per_step} of K2 alone")
+    with open(os.path.join(dp_dir, "logs", "metrics.jsonl")) as f:
+        dp_logged = [json.loads(line)["total"] for line in f]
+    require(len(dp_logged) == len(range(0, steps, 5)) and all(np.isfinite(dp_logged)),
+            f"data-parallel losses {dp_logged}")
+    require(os.path.exists(os.path.join(dp_dir, "models", "model_final.npz")),
+            "data-parallel final checkpoint")
+    require(entry["render_sharded cornell"] == {"render_megakernel": 1}
+            and set(entry["render_sharded blob"]) == {"mesh_bvh_v2p"}
+            and entry["denoise_frame_spatial"] == {"conv3x3_act": 28},
+            f"parallel path launches {entry}")
+    for need in ("render_megakernel", "conv3x3_act", "mesh_bvh_v2p"):
+        require(path_launches[need] > 0, f"{need} launched on the parallel path")
+
+    # ---- the data-parallel step against train_step on the fixed batch ----
+    state, topt, mopt = tr["state"], tr["topt"], tr["mopt"]
+    dp_step = make_dp_train_step(mesh, topt, mopt)
+    xs, ys = shard_batch(tr["fixed_x"], tr["fixed_y"], mesh)
+    want, want_m = trainer.train_step(state, tr["fixed_x"], tr["fixed_y"], topt, mopt)
+    again, _ = trainer.train_step(state, tr["fixed_x"], tr["fixed_y"], topt, mopt)
+    before = counts()
+    got, got_m = dp_step(state, xs, ys)
+    torch.cuda.synchronize()
+    step_launches = diff(counts(), before)
+
+    def same_trees(a, b):
+        return all(torch.equal(u, v) for (_, u), (_, v) in zip(sorted_leaves(a), sorted_leaves(b)))
+
+    deterministic = same_trees(want.params, again.params)
+    require(step_launches == {"conv3x3_act": k2_per_step}, f"dp step launches {step_launches}")
+    require(deterministic and same_trees(got.params, want.params)
+            and same_trees(got.bn_state, want.bn_state)
+            and all(torch.equal(got_m[k], want_m[k]) for k in want_m)
+            and bool(torch.isfinite(got_m["total"])),
+            "the data-parallel step of a world of one is train_step bit for bit")
+
+    # ---- the sharded renders against render; the per-rank tiles ----
+    render_equal, tiles_equal, tile_launches = {}, {}, {}
+    whole = {}
+    for name, scene in scenes.items():
+        niter = PAR_ITERS if name == "cornell" else 1
+        img, gb, st = render(scene, opts, niter)
+        whole[name] = st
+        simg, sgb, sst = sharded[name]
+        render_equal[name] = bool(torch.equal(simg, img) and torch.equal(sgb, gb)
+                                  and sst.segments == st.segments)
+        before = counts()
+        tiles = [render_tile(scene, opts, niter, i, PAR_TILES) for i in range(PAR_TILES)]
+        torch.cuda.synchronize()
+        tile_launches[name] = diff(counts(), before)
+        tiles_equal[name] = bool(torch.equal(torch.cat([t.accum for t in tiles], 1), st.accum)
+                                 and torch.equal(torch.cat([t.gbuf for t in tiles], 1), st.gbuf))
+        require(bool(torch.isfinite(st.accum).all()) and float(st.accum.sum()) > 0,
+                f"{name} render finite and lit")
+    require(all(render_equal.values()), f"render_sharded bit for bit render: {render_equal}")
+    require(all(tiles_equal.values()), f"{PAR_TILES} tiles bit for bit the frame: {tiles_equal}")
+    require(tile_launches["cornell"] == {"render_megakernel": PAR_TILES}
+            and set(tile_launches["blob"]) == {"mesh_bvh_v2p"},
+            f"per-tile launches {tile_launches}")
+
+    # ---- the halo conv against the whole-frame conv, through K2 ----
+    gen = torch.Generator(device=dev).manual_seed(5)
+    layer_res = [(f"enc{i}", 800 >> (i - 1)) for i in range(1, 6)] + [("bottleneck", 25)] + \
+        [(f"dec{i}", 800 >> (i - 1)) for i in range(5, 0, -1)]
+    halo = {n: {"layers": 0, "max_abs_err": 0.0, "bitwise": True} for n in PAR_SLICES}
+    for block, res in layer_res:
+        for conv_name in ("conv1", "conv2", "conv3"):
+            if conv_name not in params[block]:
+                continue
+            w = params[block][conv_name]["w"].to(torch.bfloat16)
+            x = torch.randn((1, res, res, w.shape[2]), generator=gen, device=dev).to(torch.bfloat16)
+            ref = layers.Conv3x3Function.apply(x, w)
+            zero = torch.zeros_like(x[:, :1])
+            for n in PAR_SLICES:
+                if res % n:
+                    continue
+                h = res // n
+                for i in range(n):
+                    lo, hi = i * h, (i + 1) * h
+                    ext = torch.cat([x[:, lo - 1:lo] if lo else zero, x[:, lo:hi],
+                                     x[:, hi:hi + 1] if hi < res else zero], 1)
+                    y = layers.Conv3x3Function.apply(ext, w)[:, 1:h + 1]
+                    part = ref[:, lo:hi]
+                    halo[n]["max_abs_err"] = max(halo[n]["max_abs_err"],
+                                                 float((y - part).abs().max()))
+                    halo[n]["bitwise"] &= bool(torch.equal(y, part))
+                    require(bool(((y - part).abs() <= 1e-3 + 1e-3 * part.abs()).all()),
+                            f"halo conv at {block}.{conv_name}, slice {i} of {n}")
+                halo[n]["layers"] += 1
+    require(halo[4]["layers"] == 20 and halo[5]["layers"] == 28, f"halo conv layers {halo}")
+
+    # ---- denoise_frame_spatial against apply_frame; the sequence ----
+    hid = init_hidden(1, 800, 800, mopts, device=dev)
+
+    def whole_denoise(bf16=False):
+        with torch.no_grad():
+            return apply_frame(params, bn, frame, hid, bf16=bf16, options=mopts)
+
+    y_ref, hidden_ref, _ = whole_denoise()
+    yb_ref = whole_denoise(bf16=True)[0]
+    yb_sp, _ = denoise_frame_spatial(params, bn, frame, mesh, bf16=True)
+    denoise = {"float32_max_abs_err": float((y_sp - y_ref).abs().max()),
+               "float32_bitwise": bool(torch.equal(y_sp, y_ref)),
+               "hidden_bitwise": all(torch.equal(hidden_sp[k], hidden_ref[k]) for k in hidden_ref),
+               "bf16_rel_l2": float((yb_sp - yb_ref).norm() / yb_ref.norm())}
+    require(bool(torch.isfinite(y_sp).all()) and tuple(y_sp.shape) == (1, 800, 800, 3)
+            and bool(((y_sp - y_ref).abs() <= 1e-3 + 1e-3 * y_ref.abs()).all()),
+            f"denoise_frame_spatial against apply_frame: {denoise}")
+    require(denoise["bf16_rel_l2"] < 2e-2, f"bfloat16 denoise_frame_spatial: {denoise}")
+    frames = torch.stack([frame, frame.flip(2)])
+    seq = denoise_sequence_spatial(params, bn, frames, mesh)
+    loop, hd = [], None
+    for t in range(2):
+        y_t, hd = denoise_frame_spatial(params, bn, frames[t], mesh, hd)
+        loop.append(y_t)
+    require(torch.equal(seq, torch.stack(loop)) and bool(torch.isfinite(seq).all())
+            and not torch.equal(seq[0], seq[1]), "denoise_sequence_spatial is its frame loop")
+
+    # ---- times: each entry against its single-process function, in turns
+    # (parallel, single, single, parallel); events ms and the host's ms until
+    # the call returned, per call; the collectives one call runs ----
+    entries = {
+        "dp_step": (lambda: dp_step(state, xs, ys), 2,
+                    lambda: trainer.train_step(state, tr["fixed_x"], tr["fixed_y"], topt, mopt)),
+        "render_sharded": (lambda: render_sharded(scenes["cornell"], opts, PAR_ITERS, mesh), 10,
+                           lambda: render(scenes["cornell"], opts, PAR_ITERS)),
+        "denoise_frame_spatial": (lambda: denoise_frame_spatial(params, bn, frame, mesh), 10,
+                                  whole_denoise)}
+
+    def timed(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(reps):
+            fn()
+        host = (time.perf_counter() - t0) * 1e3 / reps
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / reps, host
+
+    times = {}
+    for name, (parallel_fn, reps, single_fn) in entries.items():
+        runs = {"events_ms": {"parallel": [], "single": []}, "host_ms": {"parallel": [], "single": []}}
+        for side in ("parallel", "single", "single", "parallel"):
+            ev, host = timed(parallel_fn if side == "parallel" else single_fn, reps)
+            runs["events_ms"][side].append(ev)
+            runs["host_ms"][side].append(host)
+        calls = []
+        with recording(dist, "all_reduce", calls), recording(dist, "all_gather", calls), \
+                recording(par_mesh, "_gather_single", calls):
+            parallel_fn()
+        torch.cuda.synchronize()
+        times[name] = {**runs, "calls_per_run": reps, "collectives_per_call": len(calls)}
+    destroy()
+    emit({"phase": "parallel_path", "card": smi, "world": "1 rank, NCCL",
+          "launches": {"path": {n: v for n, v in path_launches.items() if v}, "by_entry": entry,
+                       "dp_step_on_fixed_batch": step_launches, "tiles": tile_launches},
+          "train": {"steps": steps, "batch_per_rank": 1, "crop": TRAIN_CROP,
+                    "sequence": TRAIN_SEQ, "bf16_compute": topt.bf16_compute,
+                    "k2_launches_per_step": k2_per_step, "logged_losses": dp_logged,
+                    "seconds": train_s},
+          "dp_step_bitwise_train_step": True, "train_step_deterministic": deterministic,
+          "render_sharded_bitwise_render": render_equal,
+          "tiles": {"count": PAR_TILES, "bitwise_whole_frame": tiles_equal,
+                    "k1_pixel_offsets": [i * 800 * 800 // PAR_TILES for i in range(PAR_TILES)]},
+          "halo_conv": {str(n): v for n, v in halo.items()},
+          "denoise": denoise, "sequence_frames": 2, "times": times,
+          "phase_seconds": time.time() - t_phase,
+          "tolerance": "bit for bit: the dp step (params, BN state, metrics), the sharded "
+                       "renders, the tiles, the sequence; halo conv and float32 "
+                       "denoise |k-w| <= 1e-3 + 1e-3|w| (bitwise reported); bfloat16 denoise "
+                       "rel L2 < 2e-2 (the halo conv rounds to bfloat16, apply_frame keeps "
+                       "float32); times: events_ms = CUDA events around calls_per_run calls "
+                       "back to back, host_ms = the host clock until the last returned, per "
+                       "call, two runs per side in the order parallel, single, single, "
+                       "parallel; collectives_per_call = all_reduce, all_gather and "
+                       "all-gather-into-tensor calls in one call of the parallel entry"})
+    return path_launches
 
 
 # The sphere-before-a-wall scene of the JAX package's edge-gradient tests
@@ -2516,6 +2798,9 @@ def main():
     phase_variants_stream_path(cli, kernels, smi, dev)
     phase_pad_channels(kernels, smi, dev)
     phase_edge_grad_path(kernels, smi, dev)
+    par_launches = phase_parallel_path(cli, kernels, smi, dev, {
+        "train_dir": train_dir, "data_dir": data_dir, "fixed_x": fixed_x, "fixed_y": fixed_y,
+        "state": state, "topt": topt, "mopt": mopt})
 
     # ---- 11. the card's busy time in one train step (profiler), last ----
     step_busy = busy_ms(lambda: trainer.train_step(state, fixed_x, fixed_y, topt, mopt))
@@ -2620,6 +2905,8 @@ def main():
          "splits_3xtf32": probe_splits["3xtf32"]},
     ]}
     require(len(summary["kernels"]) == 10, "ten kernels in the summary")
+    for row in summary["kernels"]:
+        row["parallel_path_launches"] = par_launches[row["name"]]
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, **summary, "conv_per_shape": per_shape}, f, indent=1)
     emit(summary)

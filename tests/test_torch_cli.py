@@ -109,13 +109,44 @@ def test_unported_options_raise(flag, tmp_path):
     ["datagen", "scenes/cornell_box.txt", "--out-dir", "unused", "--variants", "2"],
     ["train", "--data-dir", "unused", "--data-parallel"]])
 def test_unported_commands_raise(argv, tmp_path):
-    """``train --data-parallel`` is the one command line still refused;
+    """The two command lines that were refused once: ``train
+    --data-parallel`` runs as a world of one (gloo, in this process) for one
+    epoch over a 64x64 corpus of 7 frames on 32x32 crops, one sequence per
+    step, its final checkpoint reloads to the state it returned, and it is
+    ``train`` bit for bit (each collective sums one term and divides by 1);
     ``datagen --variants 2`` renders the scene and two randomized variants
     (32x32, 2 frames, 2-spp truth, one pan)."""
     from ai_path_tracer_denoiser_tpu_torch.app.cli import main
     if argv[0] == "train":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            main(argv + ["--device", "cpu"])
+        from ai_path_tracer_denoiser_tpu_torch.models.export import sorted_leaves
+        from ai_path_tracer_denoiser_tpu_torch.parallel.mesh import destroy
+        from ai_path_tracer_denoiser_tpu_torch.train import load_checkpoint
+        data, models = tmp_path / "data", tmp_path / "models"
+        rng = np.random.default_rng(0)
+        for sub, c in (("input", 10), ("gt", 3)):
+            os.makedirs(data / sub)
+            for f in range(7):
+                np.save(data / sub / f"000_0_0_{f:04d}.npy",
+                        rng.random((64, 64, c), dtype=np.float32))
+        argv = [str(data) if a == "unused" else a for a in argv]
+        try:
+            state = main(argv + ["--device", "cpu", "--model-dir", str(models), "--log-dir",
+                                 str(tmp_path / "logs"), "--epochs", "1", "--crop-size", "32"])
+        finally:
+            destroy()
+        assert state.step == 7
+        assert sorted(os.listdir(models)) == ["model_0.npz", "model_final.npz"]
+        final = load_checkpoint(str(models / "model_final.npz"), device="cpu")
+        assert final.step == 7
+        for (_, a), (_, b) in zip(sorted_leaves(final.params), sorted_leaves(state.params)):
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+        single = main(argv[:-1] + ["--device", "cpu", "--model-dir", str(tmp_path / "single"),
+                                   "--log-dir", str(tmp_path / "single_logs"), "--epochs", "1",
+                                   "--crop-size", "32"])
+        for tree in ("params", "bn_state"):
+            for (_, a), (_, b) in zip(sorted_leaves(getattr(single, tree)),
+                                      sorted_leaves(getattr(state, tree))):
+                np.testing.assert_array_equal(a.numpy(), b.numpy())
         return
     out = str(tmp_path / "unused")
     argv = [out if a == "unused" else a for a in argv]
@@ -127,6 +158,18 @@ def test_unported_commands_raise(argv, tmp_path):
     first = [np.load(os.path.join(in_dir, f"{s:03d}_0_0_0000.npy")) for s in range(3)]
     assert all(x.shape == (32, 32, 10) and np.isfinite(x).all() for x in first)
     assert not np.array_equal(first[0], first[1]) and not np.array_equal(first[1], first[2])
+
+
+def test_train_data_parallel_refuses_device_data():
+    """``--device-data`` keeps the corpus on one device: it is refused with
+    ``--data-parallel`` before any process group starts."""
+    import torch.distributed as dist
+
+    from ai_path_tracer_denoiser_tpu_torch.app.cli import main
+    with pytest.raises(ValueError, match="--device-data"):
+        main(["train", "--data-dir", "unused", "--data-parallel", "--device-data",
+              "--device", "cpu"])
+    assert not dist.is_initialized()
 
 
 def test_parity_denoise_equals_the_folded_path(tmp_path):

@@ -317,6 +317,21 @@ def test_k1_calls_on_two_streams_equal_the_witness_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_k1_four_tiles_equal_the_frame_on_card(cuda_device):
+    """The per-rank render of parallel/render_shard.py on one card: cornell in
+    4 tiles through K1 at pixel offsets 0, N/4, N/2, 3N/4, concatenated, is
+    the whole frame's render bit for bit."""
+    from ai_path_tracer_denoiser_tpu_torch.parallel.render_shard import render_tile
+    scene, opts = _scene("cornell_box.txt", cuda_device), RenderOptions()
+    whole = cuda_backend.render_cuda(scene, opts, 2)
+    before = cuda_backend.KERNEL.launches
+    tiles = [render_tile(scene, opts, 2, i, 4) for i in range(4)]
+    assert cuda_backend.KERNEL.launches - before == 4
+    assert torch.equal(torch.cat([t.accum for t in tiles], 1), whole.accum)
+    assert torch.equal(torch.cat([t.gbuf for t in tiles], 1), whole.gbuf)
+
+
+@pytest.mark.cuda
 def test_k1_counts_the_plain_segments_on_card(cuda_device):
     """The kernel's own count of segments traced is the plain bounce loop's
     (within 0.1%: a near-tie hit may end one path a bounce apart), and its
