@@ -28,3 +28,5 @@ on the CPU every kernel wrapper runs its plain PyTorch version.
 """
 
 __version__ = "0.1.0"
+
+from . import config as config  # noqa: E402,F401

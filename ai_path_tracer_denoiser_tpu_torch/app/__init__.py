@@ -1,1 +1,2 @@
 """Command-line application of the port."""
+from .cli import main  # noqa: F401

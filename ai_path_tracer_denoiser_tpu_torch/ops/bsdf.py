@@ -190,3 +190,40 @@ def _scatter_dielectric_v(ray_dir: Vec3, point: Vec3, normal: Vec3, mat, u1, u2)
                           vwhere(is_refr, refr_color, diff_color)))
     new_origin = point + new_dir * 0.001
     return new_dir, new_origin, color
+
+
+# ---------------------------------------------------------------------------
+# AoS wrappers: the JAX package's (N, 3) API for tests and outside callers
+# ---------------------------------------------------------------------------
+
+def reflect(incident, normal):
+    """glm::reflect, I - 2 dot(N, I) N, on (N, 3) tensors."""
+    return v_reflect(Vec3.from_rows(incident), Vec3.from_rows(normal)).stack()
+
+
+def glm_refract(incident, normal, eta):
+    refr, ok = glm_refract_v(Vec3.from_rows(incident), Vec3.from_rows(normal), eta)
+    return refr.stack(), ok
+
+
+def refract_possible(v, n, ni_over_nt):
+    return refract_possible_v(Vec3.from_rows(v), Vec3.from_rows(n), ni_over_nt)
+
+
+def cosine_hemisphere_direction(normal, u1, u2):
+    return cosine_hemisphere_direction_v(Vec3.from_rows(normal), u1, u2).stack()
+
+
+def scatter_ray(ray_dir, point, surface_normal, mat, u1, u2,
+                fresnels: bool = True, dielectric: bool = False,
+                mesh_normal_view: bool = False):
+    """(N, 3) wrapper over :func:`scatter_ray_v`; ``mat``'s ``color`` and
+    ``specular_color`` are (N, 3) too."""
+    planes = dict(mat)
+    for key in ("color", "specular_color"):
+        planes[key] = Vec3.from_rows(mat[key])
+    d, o, c = scatter_ray_v(Vec3.from_rows(ray_dir), Vec3.from_rows(point),
+                            Vec3.from_rows(surface_normal), planes, u1, u2,
+                            fresnels=fresnels, dielectric=dielectric,
+                            mesh_normal_view=mesh_normal_view)
+    return d.stack(), o.stack(), c.stack()

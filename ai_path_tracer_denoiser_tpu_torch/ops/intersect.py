@@ -18,6 +18,7 @@ is fixed, as in the JAX package).
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -284,12 +285,15 @@ BINNED_MIN_BINS = 64   # the JAX package's routing rule, kept as it is
 def resolve_mesh_impl(mesh: MeshData, impl: str = "auto") -> str:
     """The BVH intersection a mesh takes: "auto" sends a mesh of
     ``BINNED_MIN_BINS`` bins (supers of 256 faces) or more to the binned
-    pair pipeline and a smaller one to the per-ray traversal ("v2p")."""
+    pair pipeline and a smaller one to the per-ray traversal ("v2p").
+    ``APTD_BINNED_MIN_BINS``, read at each call as in the JAX package,
+    moves the threshold."""
     if impl != "auto":
         return impl
     if mesh is None or mesh.bvh is None:
         return "v2p"
-    return "binned" if mesh.bvh.n_supers_real >= BINNED_MIN_BINS else "v2p"
+    thresh = int(os.environ.get("APTD_BINNED_MIN_BINS", BINNED_MIN_BINS))
+    return "binned" if mesh.bvh.n_supers_real >= thresh else "v2p"
 
 
 def mesh_t_cull(mesh: MeshData, o: Vec3, d: Vec3, t_g: torch.Tensor,
@@ -396,3 +400,52 @@ def intersect_scene_v(geoms: Geoms, mesh: MeshData, o: Vec3, d: Vec3,
     mat = torch.where(miss, -1, mat)
     return dict(t=t, point=point, normal=normal.normalized_safe(),
                 material_id=mat, is_inside=~outside & ~miss)
+
+
+# ---------------------------------------------------------------------------
+# AoS wrappers: the JAX package's (N, 3) API for tests and outside callers
+# ---------------------------------------------------------------------------
+
+def box_intersect(transform, inverse_transform, ray_o, ray_d):
+    """(N, 3) wrapper over :func:`box_intersect_v`."""
+    t, p, n, outside = box_intersect_v(transform, inverse_transform,
+                                       Vec3.from_rows(ray_o), Vec3.from_rows(ray_d))
+    return t, p.stack(), n.stack(), outside
+
+
+def sphere_intersect(transform, inverse_transform, inv_transpose, ray_o, ray_d):
+    """(N, 3) wrapper over :func:`sphere_intersect_v`."""
+    t, p, n, outside = sphere_intersect_v(transform, inverse_transform, inv_transpose,
+                                          Vec3.from_rows(ray_o), Vec3.from_rows(ray_d))
+    return t, p.stack(), n.stack(), outside
+
+
+def triangle_intersect(v, n, ray_o, ray_d):
+    """Ray batch (N, 3) against face batch ``v``/``n`` (F, 3, 3) -> (N, F)
+    t (-1 on a miss), (N, F, 3) points and unit normals, with the JAX
+    function's barycentric weights."""
+    o2 = Vec3(ray_o[:, 0:1], ray_o[:, 1:2], ray_o[:, 2:3])
+    d2 = Vec3(ray_d[:, 0:1], ray_d[:, 1:2], ray_d[:, 2:3])
+    v0, v1, v2 = (Vec3(v[None, :, c, 0], v[None, :, c, 1], v[None, :, c, 2])
+                  for c in range(3))
+    t, u, w, hit = _triangle_t(v0, v1, v2, o2, d2)
+    u, w = u[..., None], w[..., None]
+    point = u * v[None, :, 0] + w * v[None, :, 1] + (1 - u - w) * v[None, :, 2]
+    nrm = (1 - u - w) * n[None, :, 0] + u * n[None, :, 1] + w * n[None, :, 2]
+    nrm = nrm / torch.linalg.vector_norm(nrm, dim=-1, keepdim=True)
+    return torch.where(hit, t, -1.0), point, nrm
+
+
+def ray_aabb_intersect(ray_o, ray_d, lb, ub):
+    """(N, 3) wrapper over :func:`ray_aabb_intersect_v`."""
+    return ray_aabb_intersect_v(Vec3.from_rows(ray_o), Vec3.from_rows(ray_d), lb, ub)
+
+
+def intersect_scene(geoms: Geoms, mesh: MeshData, ray_o, ray_d,
+                    ray_culling: bool = True, face_chunk: int = 16):
+    """(N, 3) wrapper over :func:`intersect_scene_v`: dict(t, point, normal,
+    material_id, is_inside) with (N, 3) vectors."""
+    r = intersect_scene_v(geoms, mesh, Vec3.from_rows(ray_o), Vec3.from_rows(ray_d),
+                          ray_culling, face_chunk)
+    return dict(t=r["t"], point=r["point"].stack(), normal=r["normal"].stack(),
+                material_id=r["material_id"], is_inside=r["is_inside"])

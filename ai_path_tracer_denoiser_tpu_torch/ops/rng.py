@@ -16,6 +16,8 @@ _MASK = 0xFFFFFFFF
 # minstd_rand constants
 _LCG_A = 48271
 _LCG_M = 2147483647          # 2^31 - 1
+_LCG_Q = _LCG_M // _LCG_A    # 44488
+_LCG_R = _LCG_M % _LCG_A     # 3399
 # u = float32(state) * float32(1/M): a float32 multiply, not a division
 # (ops/rng.py:110 of the JAX package).
 _INV_M = torch.tensor(1.0 / _LCG_M, dtype=torch.float32)
@@ -59,6 +61,21 @@ def make_seeded_engine(iteration, index, depth) -> torch.Tensor:
     h = utilhash((1 << 31) | ((depth << 22) & _MASK) | iteration) ^ utilhash(index)
     state = mod_mersenne31(h)
     return torch.where(state == 0, torch.ones_like(state), state)
+
+
+# The JAX package's older name for the same function.
+seeded_engine = make_seeded_engine
+
+
+def lcg_next_schrage(state: torch.Tensor) -> torch.Tensor:
+    """One minstd step by Schrage's method, whose intermediates all fit in
+    int32 (the JAX package's reference form of :func:`lcg_next`): equal to
+    it bit for bit over the whole state space."""
+    state = state.to(torch.int64)
+    hi = state // _LCG_Q
+    lo = state - hi * _LCG_Q
+    t = _LCG_A * lo - _LCG_R * hi
+    return torch.where(t > 0, t, t + _LCG_M)
 
 
 def lcg_next(state: torch.Tensor) -> torch.Tensor:

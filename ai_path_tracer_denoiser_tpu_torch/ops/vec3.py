@@ -70,6 +70,11 @@ class Vec3(NamedTuple):
 
     # -- conversions --
     @staticmethod
+    def from_rows(a: torch.Tensor) -> "Vec3":
+        """(..., 3) tensor -> Vec3 of (...,) planes."""
+        return Vec3(a[..., 0], a[..., 1], a[..., 2])
+
+    @staticmethod
     def full_like(like: torch.Tensor, value: float) -> "Vec3":
         f = torch.full_like(like, value)
         return Vec3(f, f, f)

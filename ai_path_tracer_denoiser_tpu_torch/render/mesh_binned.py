@@ -36,6 +36,7 @@ fewer than ``C_A`` bins are exact too.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -48,8 +49,10 @@ from .mesh_kernel_v2p import (EDGE_COLS, _check_bvh, _slab_live, mesh_intersect_
                               packed_edges, ray_planes, table_ptr)
 
 BIN = FANOUT * CLUSTER          # faces per bin = one super (256)
-C_A = 12                        # slots for every ray
-C_B = 20                        # extra slots for overflow rays
+# Slot counts: runtime arguments of the subscription kernel, so the JAX
+# package's levers (read at import) reach the card as they are.
+C_A = int(os.environ.get("APTD_BINNED_CA", "12"))   # slots for every ray
+C_B = int(os.environ.get("APTD_BINNED_CB", "20"))   # extra slots for overflow rays
 _GRANULE = 1024                 # the packing prefixes round up to this
 _INF = float("inf")
 _DEADKEY = 1 << 20              # sorts past every real bin id
@@ -359,11 +362,13 @@ def mesh_intersect_binned(bvh: MeshBVH, o: Vec3, d: Vec3,
     """Closest mesh hit via pair binning; ``mesh_intersect_bvh_v2p``'s
     contract.
 
-    ``lcap``/``lcapb``: packing prefixes (live rays / overflow rays),
-    ``default_caps`` when absent.  A batch that exceeds either, or a ray in
-    more bins than the slots hold, sends the whole call to the per-ray
-    traversal: right for any input, packed-fast for the batches the router
-    sends here.  ``lanes`` is accepted for the signature and has no effect.
+    ``lcap``/``lcapb``: packing prefixes (live rays / overflow rays); when
+    absent, ``APTD_BINNED_LCAP`` / ``APTD_BINNED_LCAPB`` if set and not 0
+    (read at each call, as in the JAX package), else ``default_caps``.  A
+    batch that exceeds either, or a ray in more bins than the slots hold,
+    sends the whole call to the per-ray traversal: right for any input,
+    packed-fast for the batches the router sends here.  ``lanes`` is
+    accepted for the signature and has no effect.
     """
     del lanes
     _check_bvh(bvh)
@@ -372,8 +377,12 @@ def mesh_intersect_binned(bvh: MeshBVH, o: Vec3, d: Vec3,
     if t_cull is None:
         t_cull = torch.full((n,), _INF, dtype=torch.float32, device=dev)
     cap_a, cap_b = default_caps(n)
-    lcap = min(int(lcap if lcap is not None else cap_a), n)
-    lcapb = min(int(lcapb if lcapb is not None else cap_b), lcap)
+    if lcap is None:
+        lcap = int(os.environ.get("APTD_BINNED_LCAP", "0")) or cap_a
+    if lcapb is None:
+        lcapb = int(os.environ.get("APTD_BINNED_LCAPB", "0")) or cap_b
+    lcap = min(int(lcap), n)
+    lcapb = min(int(lcapb), lcap)
 
     kb = bvh.n_supers_real
     bounds = bvh.super_bounds

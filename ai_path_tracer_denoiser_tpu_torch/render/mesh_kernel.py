@@ -37,6 +37,9 @@ from .mesh_kernel_v2p import (EDGE_COLS, _check_bvh, _slab_live, hit_buffers, hi
 
 LANES = 1024            # default rays per tile: the largest CUDA block
 MAX_LANES = 1024
+# The largest mesh the hierarchy kernels K4-K8 take (the JAX package's cap):
+# it keeps face and pair indices well inside int32.
+MAX_KERNEL_FACES = 1_000_000
 _INF = float("inf")
 
 

@@ -33,7 +33,6 @@ from ..utils.cuda_build import CudaKernel, check
 from ..utils.derived_cache import DerivedCache
 
 _INF = float("inf")
-MAX_KERNEL_FACES = 1_000_000   # keeps face and pair indices well inside int32
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -146,11 +145,16 @@ def mesh_intersect_bvh_v2p_plain(bvh: MeshBVH, o: Vec3, d: Vec3,
 
 
 def _check_bvh(bvh: MeshBVH) -> None:
+    """Refuse, on every device, a hierarchy the kernels cannot take: built
+    with another cluster, or over ``MAX_KERNEL_FACES`` faces."""
+    # mesh_kernel.py imports this module's helpers, so its cap is read here
+    from .mesh_kernel import MAX_KERNEL_FACES
     if bvh.cluster != CLUSTER:
-        raise ValueError(f"bvh built with cluster={bvh.cluster}, the kernels "
-                         f"are written for CLUSTER={CLUSTER}")
+        raise ValueError(f"bvh built with cluster={bvh.cluster}, the kernels are "
+                         f"compiled for CLUSTER={CLUSTER}")
     if bvh.num_faces > MAX_KERNEL_FACES:
-        raise ValueError(f"mesh has {bvh.num_faces} faces > {MAX_KERNEL_FACES}")
+        raise ValueError(f"mesh has {bvh.num_faces} faces > MAX_KERNEL_FACES="
+                         f"{MAX_KERNEL_FACES}")
 
 
 def ray_planes(o: Vec3, d: Vec3, extra: torch.Tensor):

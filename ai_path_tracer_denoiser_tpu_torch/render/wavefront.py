@@ -113,6 +113,17 @@ def generate_camera_rays_v(camera: Camera, iteration, options: RenderOptions,
     return origin, direction
 
 
+def generate_camera_rays(camera: Camera, iteration, options: RenderOptions,
+                         pixel_ids: Optional[torch.Tensor] = None):
+    """(N, 3) wrapper over :func:`generate_camera_rays_v`; every pixel of
+    the camera, in order, when ``pixel_ids`` is absent."""
+    if pixel_ids is None:
+        w, h = camera.resolution
+        pixel_ids = torch.arange(w * h, dtype=torch.int64, device=camera.position.device)
+    o, d = generate_camera_rays_v(camera, iteration, options, pixel_ids)
+    return o.stack(), d.stack()
+
+
 def _gather_material(scene: Scene, mat_id: torch.Tensor):
     """Per-ray material planes; mat_id == -1 gathers row 0 harmlessly."""
     safe = torch.clamp_min(mat_id, 0).long()

@@ -80,3 +80,15 @@ def orbit_camera(camera: Camera, phi: float, theta: float, zoom: float) -> Camer
         up=up, right=right, fov=camera.fov,
         pixel_length=camera.pixel_length, resolution=camera.resolution,
     )
+
+
+def orbit_path(camera: Camera, n_frames: int, dphi: float = 0.01,
+               dtheta: float = 0.0, dzoom: float = 0.0):
+    """Yield cameras along an orbit pan: frame i at phi + dphi i, theta +
+    dtheta i (kept inside (1e-3, pi - 1e-3)) and zoom + dzoom i (at least
+    0.1), from the camera's own orbit parameters."""
+    phi, theta, zoom = orbit_params_from_camera(camera)
+    for i in range(n_frames):
+        yield orbit_camera(camera, phi + dphi * i,
+                           min(max(theta + dtheta * i, 1e-3), math.pi - 1e-3),
+                           max(zoom + dzoom * i, 0.1))

@@ -2,10 +2,11 @@
 
 ``native/libaptd_native.so`` (tinyobj-style OBJ loading, PNG writing) has
 a plain C interface and no framework dependency; this is the port's own
-loader for it.  It follows the same rules as the JAX package's loader —
-load the library if present, else try ``make`` once, else report it
-unavailable — so both packages parse OBJ files the same way in the same
-checkout.  Pure-Python fallbacks exist for every entry point.
+loader for it, binding ``aptd_obj_load`` / ``aptd_free`` (``load_obj``)
+and ``aptd_png_write`` (``write_png``).  It follows the same rules as the
+JAX package's loader — load the library if present, else try ``make``
+once, else report it unavailable — so both packages parse OBJ files the
+same way in the same checkout.  Pure-Python fallbacks exist for every entry point.
 
 Several processes may find the library missing at once (pytest-xdist
 workers each import the loaders while collecting).  ``make`` writes its
@@ -73,6 +74,9 @@ def load_library(native_dir: str = _NATIVE_DIR) -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.POINTER(ctypes.c_float))]
     lib.aptd_free.restype = None
     lib.aptd_free.argtypes = [ctypes.c_void_p]
+    lib.aptd_png_write.restype = ctypes.c_int
+    lib.aptd_png_write.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_ubyte),
+                                   ctypes.c_int, ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -104,3 +108,17 @@ def load_obj(path: str, transform: Optional[np.ndarray] = None,
         lib.aptd_free(norms_p)
     return verts, norms
 
+
+def write_png(path: str, arr: np.ndarray) -> None:
+    """Write uint8 (H, W, 1|3|4) pixels as an 8-bit PNG through the native
+    library: filter type 0 on every row, zlib level 6, the bytes of
+    ``utils/imageio.py:encode_png``."""
+    lib = load_library()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    arr = np.ascontiguousarray(arr, np.uint8)
+    h, w, c = arr.shape
+    rc = lib.aptd_png_write(path.encode(), arr.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)),
+                            w, h, c)
+    if rc != 0:
+        raise OSError(f"aptd_png_write failed for {path}")

@@ -141,6 +141,19 @@ RENDER_SPP = 16               # render --hdr --save-gbuffer
 # 256x256, 16-spp truth; fit_streamed on 128x128 crops, one group per shard
 VARIANTS, VARIANT_RES, VARIANT_FRAMES, VARIANT_GT_SPP = 2, 256, 8, 16
 STREAM_CROP = 128
+# The campaign driver (tools/train_pipeline.py) at the JAX defaults' shapes
+# (512x512 frames, batch 4, 256x256 crops, 7-frame windows, default widths,
+# bfloat16) with its counts cut: flag -> (value here, the driver's default).
+CAMPAIGN_CUTS = {"train-scenes": (2, 28), "eval-scenes": (1, 4), "frames": (28, 48),
+                 "noise-seeds": (1, 3), "movs": (1, 2), "gt-spp": (64, 800),
+                 "gt-spp-eval": (128, 2000), "epochs": (2, 60), "bn-recal": (2, 120)}
+CAMPAIGN_RES = 512
+CAMPAIGN_TIMED_STEPS = 5      # timed train steps a side, remat and plain in turns
+# rel L2 of the card's eval window against the CPU's.  Each conv rounds its
+# input to bfloat16 and the recurrence carries a difference in sum order
+# across frames; the bar sits above what sum order alone moves the window
+# and below what a planted conv fault moves it (tools/eval_bar_probe.py)
+CAMPAIGN_EVAL_BAR = 5e-3
 
 
 def require(cond, what):
@@ -1002,6 +1015,245 @@ def phase_parallel_path(cli, kernels, smi, dev, tr):
                        "parallel; collectives_per_call = all_reduce, all_gather and "
                        "all-gather-into-tensor calls in one call of the parallel entry"})
     return path_launches
+
+
+def phase_campaign_path(kernels, smi, dev):
+    """The training campaign driver, ``tools/train_pipeline.py``, through its
+    ``main`` one stage at a time (counts zeroed before each, read after):
+    datagen through K1 (``--render-backend pallas_operand``), train through
+    K2 with ``remat_frames`` (batch 4) and the BatchNorm recalibration,
+    eval, report; then ``--resume --epochs 3 --stages train`` (one epoch
+    more from the 'final' checkpoint), ``tools/export_latest.py`` on the
+    checkpoints, eval of that artifact and ``tools/compare_evals.py`` on
+    the two eval records.  The artifacts go to a directory under runs/;
+    the repository's artifacts/ must be left as it was.  Then: the artifact
+    against the checkpoint and a recalibration redone here (bit for bit), a
+    remat_frames step against a plain one on one batch of the corpus (bit
+    for bit; launches, peak memory and ms in turns), and the card's eval
+    window against the CPU's.  Returns the campaign's launches per kernel."""
+    import hashlib
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from ai_path_tracer_denoiser_tpu_torch.config import ModelOptions, TrainOptions
+    from ai_path_tracer_denoiser_tpu_torch.data import SequenceDataset, sequence_batches
+    from ai_path_tracer_denoiser_tpu_torch.models import load_model, model_options_from_meta
+    from ai_path_tracer_denoiser_tpu_torch.models.export import sorted_leaves
+    from ai_path_tracer_denoiser_tpu_torch.tools import (compare_evals, export_latest,
+                                                         train_pipeline)
+    from ai_path_tracer_denoiser_tpu_torch.train import (load_checkpoint, recalibrate_bn,
+                                                         trainer)
+    t_phase = time.time()
+    root = os.path.join(OUT_DIR, "campaign")
+    shutil.rmtree(root, ignore_errors=True)          # datagen resumes: start empty
+    art = os.path.join(root, "artifacts")
+    shipped = os.path.join(ROOT, "artifacts")
+
+    def tree_digest(path):
+        h = hashlib.sha256()
+        for name in sorted(os.listdir(path)):
+            with open(os.path.join(path, name), "rb") as f:
+                h.update(name.encode() + hashlib.sha256(f.read()).digest())
+        return h.hexdigest()
+
+    shipped_before = tree_digest(shipped)
+    cut = {k: v for k, (v, _) in CAMPAIGN_CUTS.items()}
+    argv = ["--out", root, "--artifacts-dir", art, "--device", dev.type,
+            "--res", str(CAMPAIGN_RES), "--batch", str(TRAIN_BATCH), "--crop", str(TRAIN_CROP),
+            "--render-backend", "pallas_operand"]
+    for flag, value in cut.items():
+        argv += [f"--{flag}", str(value)]
+    stage_s, launches, total = {}, {}, {}
+    os.makedirs(root)
+    log = open(os.path.join(root, "stages.log"), "w")    # the stages' progress lines
+
+    def run(name, fn):
+        reset_launches(kernels)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with contextlib.redirect_stdout(log):
+            fn()
+        torch.cuda.synchronize()
+        stage_s[name] = time.time() - t0
+        launches[name] = nonzero_launches(kernels)
+        for k, v in launches[name].items():
+            total[k] = total.get(k, 0) + v
+
+    for stage in ("datagen", "train", "eval", "report"):
+        run(stage, lambda: train_pipeline.main(argv + ["--stages", stage]))
+    first_eval = os.path.join(root, "eval_epochs2.json")
+    shutil.copy(os.path.join(root, "eval.json"), first_eval)
+    model_dir = os.path.join(root, "models")
+    ckpt_e2 = load_checkpoint(os.path.join(model_dir, "model_final.npz"), device=dev)
+    run("train --resume --epochs 3",
+        lambda: train_pipeline.main(argv + ["--stages", "train", "--resume", "--epochs", "3"]))
+    ckpt = load_checkpoint(os.path.join(model_dir, "model_final.npz"), device=dev)
+    run("export_latest", lambda: export_latest.main(
+        ["--model-dir", model_dir, "--data", os.path.join(root, "data", "train"),
+         "--artifacts-dir", art, "--device", dev.type, "--bn-recal", str(cut["bn-recal"]),
+         "--batch", str(TRAIN_BATCH), "--crop", str(TRAIN_CROP)]))
+    run("eval export_latest", lambda: train_pipeline.main(
+        argv + ["--stages", "eval", "--artifact", "denoiser_multiscene_r4.npz"]))
+    log.close()
+    compared = io.StringIO()
+    with contextlib.redirect_stdout(compared):
+        compare_evals.main([first_eval, os.path.join(root, "eval.json")])
+    shipped_after = tree_digest(shipped)
+
+    # ---- what the stages wrote ----
+    n_train = cut["train-scenes"] * cut["frames"] * cut["movs"] * cut["noise-seeds"]
+    n_eval = cut["eval-scenes"] * max(14, cut["frames"] // 3)
+    want_k1 = n_train * (1 + -(-cut["gt-spp"] // 64)) + n_eval * (1 + -(-cut["gt-spp-eval"] // 64))
+    steps_per_epoch = n_train // TRAIN_BATCH
+    k2_frame = 28 * TRAIN_SEQ
+    k2_step = {"plain": k2_frame + (k2_frame - TRAIN_SEQ),
+               "remat": 2 * k2_frame + (k2_frame - TRAIN_SEQ)}   # + the recomputed forward
+    k2_recal = cut["bn-recal"] * k2_frame
+    with open(os.path.join(root, "logs", "metrics.jsonl")) as f:
+        losses = [json.loads(line)["total"] for line in f]
+    with open(first_eval) as f:
+        eval_e2 = json.load(f)
+    with open(os.path.join(root, "eval.json")) as f:
+        eval_r4 = json.load(f)
+    compare_lines = compared.getvalue().splitlines()
+
+    # the artifact (written by the resumed run): the checkpoint's weights and
+    # a recalibration redone here
+    dataset = SequenceDataset(os.path.join(root, "data", "train", "input"),
+                              os.path.join(root, "data", "train", "gt"),
+                              crop=True, crop_size=TRAIN_CROP)
+    topt = {r: TrainOptions(batch_size=TRAIN_BATCH, crop_size=TRAIN_CROP, remat_frames=r)
+            for r in (False, True)}
+    mopt = ModelOptions()
+    params, bn, meta = load_model(os.path.join(art, "denoiser_multiscene.npz"), device=dev)
+    redone = recalibrate_bn(ckpt, sequence_batches(dataset, batch_size=TRAIN_BATCH,
+                                                      seed=10_007),
+                            cut["bn-recal"], topt[True], mopt)
+
+    def same(a, b):
+        return all(pa == pb and torch.equal(x, y) for (pa, x), (pb, y)
+                   in zip(sorted_leaves(a), sorted_leaves(b)))
+
+    artifact_equal = {"params_vs_checkpoint": same(params, ckpt.params),
+                      "bn_state_vs_recalibration_redone": same(bn, redone.bn_state)}
+    recal_moved = not same(redone.bn_state, ckpt.bn_state)
+
+    # ---- remat_frames against the plain step, one batch of the corpus ----
+    x, y = next(iter(sequence_batches(dataset, batch_size=TRAIN_BATCH, seed=0)))
+    x = torch.from_numpy(x).to(dev, torch.bfloat16)
+    y = torch.from_numpy(y).to(dev, torch.bfloat16)
+    step_out, step_launches, peak = {}, {}, {}
+    for name, remat in (("plain", False), ("remat", True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches(kernels)
+        step_out[name] = trainer.train_step(ckpt, x, y, topt[remat], mopt)
+        torch.cuda.synchronize()
+        step_launches[name] = nonzero_launches(kernels)
+        peak[name] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    (sp, mp_), (sr, mr) = step_out["plain"], step_out["remat"]
+    remat_equal = {"params": same(sr.params, sp.params), "bn_state": same(sr.bn_state, sp.bn_state),
+                   "adam": same(sr.opt_state["mu"], sp.opt_state["mu"])
+                   and same(sr.opt_state["nu"], sp.opt_state["nu"]),
+                   "metrics": all(torch.equal(mr[k], mp_[k]) for k in mp_)}
+    del step_out, sp, sr
+    step_ms = {"plain": [], "remat": []}
+    for i in range(CAMPAIGN_TIMED_STEPS + 1):
+        for name in (("plain", "remat") if i % 2 else ("remat", "plain")):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            trainer.train_step(ckpt, x, y, topt[name == "remat"], mopt)
+            b.record()
+            b.synchronize()
+            step_ms[name].append(a.elapsed_time(b))
+    median = {k: statistics.median(v[1:]) for k, v in step_ms.items()}
+    del x, y
+
+    # ---- the card's eval window against the CPU's, on the campaign's artifact ----
+    ev = SequenceDataset(os.path.join(root, "data", "eval", "input"),
+                         os.path.join(root, "data", "eval", "gt"), crop=False)
+    xw, _ = ev[0]
+    mopt_art = model_options_from_meta(meta)
+    card = train_pipeline.eval_window(params, bn, mopt_art, xw, dev)
+    cpu_params, cpu_bn, _ = load_model(os.path.join(art, "denoiser_multiscene.npz"),
+                                       device="cpu")
+    t0 = time.time()
+    cpu = train_pipeline.eval_window(cpu_params, cpu_bn, mopt_art, xw, torch.device("cpu"))
+    cpu_s = time.time() - t0
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    eval_rel = rel_l2(card, cpu)
+    eval_rel_frames = [rel_l2(a, b) for a, b in zip(card, cpu)]
+
+    emit({"phase": "campaign_path", "card": smi,
+          "command": "python -m ai_path_tracer_denoiser_tpu_torch.tools.train_pipeline "
+                     + " ".join(argv[6:]),
+          "cuts": {k: {"here": v, "default": d} for k, (v, d) in CAMPAIGN_CUTS.items()},
+          "stage_seconds": stage_s, "launches": launches,
+          "expected": {"datagen_k1": want_k1, "steps_per_epoch": steps_per_epoch,
+                       "k2_per_step": k2_step, "k2_per_recalibration": k2_recal},
+          "steps": {"after_epochs_2": ckpt_e2.step, "after_resume": ckpt.step},
+          "logged_losses": losses, "meta": meta,
+          "artifact_bit_for_bit": artifact_equal, "recalibration_moved_statistics": recal_moved,
+          "eval": {"epochs_2": eval_e2, "export_latest": eval_r4},
+          "compare_evals": compare_lines,
+          "remat_step": {"bit_for_bit_plain": remat_equal, "launches": step_launches,
+                         "peak_memory_gib_above_start": peak, "step_ms": step_ms,
+                         "step_ms_median_after_first": median,
+                         "remat_over_plain": median["remat"] / median["plain"]},
+          "eval_window_card_vs_cpu": {
+              "frames": int(xw.shape[0]), "res": list(xw.shape[1:3]), "rel_l2": eval_rel,
+              "rel_l2_per_frame": eval_rel_frames, "bar": CAMPAIGN_EVAL_BAR,
+              "cpu_seconds": cpu_s},
+          "model_card_written": os.path.exists(os.path.join(art, "MODEL_CARD.md")),
+          "shipped_artifacts_untouched": shipped_after == shipped_before,
+          "phase_seconds": time.time() - t_phase,
+          "columns": "stage_seconds: host clock around each main() call, the card drained; "
+                     "step_ms: CUDA events around trainer.train_step on one batch of the "
+                     "corpus (batch 4, 7 x 256 x 256, bf16), remat and plain in turns, "
+                     "median of the 5 after the first; peak memory: "
+                     "torch.cuda.max_memory_allocated over one step less the memory held "
+                     "before it"})
+    require(launches["datagen"] == {"render_megakernel": want_k1},
+            f"datagen launches {launches['datagen']}, expected K1 x {want_k1}")
+    require(ckpt_e2.step == 2 * steps_per_epoch and ckpt.step == 3 * steps_per_epoch
+            and steps_per_epoch >= 2, f"steps {ckpt_e2.step}, {ckpt.step}")
+    require(launches["train"] == {"conv3x3_act": 2 * steps_per_epoch * k2_step["remat"]
+                                  + k2_recal}, f"train launches {launches['train']}")
+    require(launches["train --resume --epochs 3"]
+            == {"conv3x3_act": steps_per_epoch * k2_step["remat"] + k2_recal},
+            f"resumed train launches {launches['train --resume --epochs 3']}")
+    require(launches["export_latest"] == {"conv3x3_act": k2_recal},
+            f"export_latest launches {launches['export_latest']}")
+    require(launches["eval"] == {"conv3x3_act": k2_frame} == launches["eval export_latest"],
+            f"eval launches {launches['eval']}, {launches['eval export_latest']}")
+    require(not launches["report"], f"report launches {launches['report']}")
+    # fit logs every 5th step of an epoch, 3 epochs in all
+    require(len(losses) == 3 * -(-steps_per_epoch // 5) and all(np.isfinite(losses)),
+            f"logged losses {losses}")
+    require(meta["epochs"] == 3 and meta["bn_recalibrated_batches"] == cut["bn-recal"]
+            and tuple(meta["widths"]) == mopt.widths, f"artifact meta {meta}")
+    require(all(artifact_equal.values()) and recal_moved,
+            f"the artifact against the checkpoint and the recalibration: {artifact_equal}")
+    require(all(np.isfinite(v) for rec in (*eval_e2.values(), *eval_r4.values())
+                for v in rec.values()) and len(eval_e2) == len(eval_r4) == 1,
+            "finite eval records")
+    require(os.path.exists(os.path.join(art, "MODEL_CARD.md")), "MODEL_CARD.md written")
+    require(compare_lines[-1].startswith("B beats A on ") and len(compare_lines) == 4,
+            f"compare_evals: {compare_lines}")
+    require(all(remat_equal.values()), f"remat step vs plain step: {remat_equal}")
+    require(step_launches == {n: {"conv3x3_act": k2_step[n]} for n in k2_step},
+            f"step launches {step_launches}")
+    require(eval_rel <= CAMPAIGN_EVAL_BAR and np.isfinite(card).all(),
+            f"eval window card vs CPU {eval_rel} > {CAMPAIGN_EVAL_BAR}")
+    require(shipped_after == shipped_before, "the smoke run changed the repository's artifacts/")
+    return total
 
 
 # The sphere-before-a-wall scene of the JAX package's edge-gradient tests
@@ -2801,6 +3053,7 @@ def main():
     par_launches = phase_parallel_path(cli, kernels, smi, dev, {
         "train_dir": train_dir, "data_dir": data_dir, "fixed_x": fixed_x, "fixed_y": fixed_y,
         "state": state, "topt": topt, "mopt": mopt})
+    campaign_launches = phase_campaign_path(kernels, smi, dev)
 
     # ---- 11. the card's busy time in one train step (profiler), last ----
     step_busy = busy_ms(lambda: trainer.train_step(state, fixed_x, fixed_y, topt, mopt))
@@ -2907,6 +3160,7 @@ def main():
     require(len(summary["kernels"]) == 10, "ten kernels in the summary")
     for row in summary["kernels"]:
         row["parallel_path_launches"] = par_launches[row["name"]]
+        row["campaign_path_launches"] = campaign_launches.get(row["name"], 0)
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, **summary, "conv_per_shape": per_shape}, f, indent=1)
     emit(summary)

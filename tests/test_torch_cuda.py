@@ -1102,6 +1102,47 @@ def test_train_step_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_remat_step_and_recalibration_on_card(cuda_device):
+    """A bfloat16 ``remat_frames`` step equals the plain step bit for bit
+    (parameters, BatchNorm state, Adam moments, metrics) with K2's forward
+    launched once more per conv; ``recalibrate_bn`` moves only the
+    statistics, launches K2 per conv and frame and repeats bit for bit."""
+    from ai_path_tracer_denoiser_tpu_torch.models.export import sorted_leaves
+    from ai_path_tracer_denoiser_tpu_torch.train import (init_train_state, recalibrate_bn,
+                                                         train_step)
+    mopt = ModelOptions(widths=(8, 8, 8, 8, 8))
+    r = np.random.default_rng(1)
+    x = torch.from_numpy(r.normal(size=(3, 2, 64, 64, 10)).astype(np.float32))
+    y = torch.from_numpy((r.normal(size=(3, 2, 64, 64, 3)) * 0.1 + 0.5).astype(np.float32))
+    x, y = x.to(cuda_device, torch.bfloat16), y.to(cuda_device, torch.bfloat16)
+    state = init_train_state(torch.Generator().manual_seed(0), mopt, TrainOptions(),
+                             device=cuda_device)
+
+    def same(a, b):
+        return all(torch.equal(p, q) for (_, p), (_, q) in zip(sorted_leaves(a),
+                                                               sorted_leaves(b)))
+
+    out, launched = {}, {}
+    for remat in (False, True):
+        before = conv_kernel.KERNEL.launches
+        out[remat] = train_step(state, x, y, TrainOptions(remat_frames=remat), mopt)
+        launched[remat] = conv_kernel.KERNEL.launches - before
+    (plain, mp), (rem, mr) = out[False], out[True]
+    assert launched == {False: 3 * 28 + 3 * 28 - 3, True: 2 * 3 * 28 + 3 * 28 - 3}
+    assert same(rem.params, plain.params) and same(rem.bn_state, plain.bn_state)
+    assert same(rem.opt_state["mu"], plain.opt_state["mu"])
+    assert same(rem.opt_state["nu"], plain.opt_state["nu"])
+    assert all(torch.equal(mr[k], mp[k]) for k in mp)
+    batches = [(x.float().cpu().numpy(), None)] * 3
+    before = conv_kernel.KERNEL.launches
+    recal = recalibrate_bn(plain, iter(batches), 2, TrainOptions(), mopt)
+    assert conv_kernel.KERNEL.launches - before == 2 * 3 * 28
+    assert recal.params is plain.params and not same(recal.bn_state, plain.bn_state)
+    assert same(recalibrate_bn(plain, iter(batches), 2, TrainOptions(), mopt).bn_state,
+                recal.bn_state)
+
+
+@pytest.mark.cuda
 def test_fit_feeds_the_card_from_host_batches(cuda_device):
     """The host loader path on the card: numpy batches go up through pinned
     memory one batch ahead (bfloat16 under bfloat16 compute), the state

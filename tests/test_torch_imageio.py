@@ -14,6 +14,8 @@ import numpy as np
 import pytest
 
 from ai_path_tracer_denoiser_tpu.utils.imageio import read_png as jax_read_png
+from ai_path_tracer_denoiser_tpu.utils.imageio import save_png as jax_save_png
+from ai_path_tracer_denoiser_tpu_torch.utils import imageio, native
 from ai_path_tracer_denoiser_tpu_torch.utils.imageio import read_png
 
 COLOR_TYPES = {"gray": (0, 1), "gray_alpha": (4, 2), "rgb": (2, 3), "rgba": (6, 4)}
@@ -166,3 +168,21 @@ def test_render_hdr_and_gbuffer_match_the_jax_cli(tmp_path):
     ok = np.isclose(gt[3:], gj[3:], rtol=1e-5, atol=1e-5).all(axis=0)
     assert ok.mean() >= 0.998, ok.mean()
     np.testing.assert_array_equal(gt[:3], gj[:3])
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_native_write_png_and_save_png_decode_to_the_jax_file(tmp_path, channels):
+    """The native writer (``utils/native.py:write_png``) and ``save_png``
+    (``encode_png``) write files that decode to the pixels of the JAX
+    package's ``save_png``, and the same bytes."""
+    pixels = np.random.default_rng(channels).uniform(-20, 275, (19, 23, channels))
+    want = jax_read_png(jax_save_png(str(tmp_path / "jax"), pixels))
+    assert native.available()
+    native_path = str(tmp_path / "native.png")
+    native.write_png(native_path, np.clip(pixels, 0, 255).astype(np.uint8))
+    python_path = imageio.save_png(str(tmp_path / "python"), pixels)
+    for path in (native_path, python_path):
+        np.testing.assert_array_equal(read_png(path), want)
+        np.testing.assert_array_equal(jax_read_png(path), want)
+    with open(native_path, "rb") as a, open(python_path, "rb") as b:
+        assert a.read() == b.read()

@@ -24,6 +24,7 @@ import torch
 
 from ai_path_tracer_denoiser_tpu.ops import bvh as jbvh
 from ai_path_tracer_denoiser_tpu.ops.vec3 import Vec3 as JVec3
+from ai_path_tracer_denoiser_tpu.render import mesh_kernel as jmesh_kernel
 from ai_path_tracer_denoiser_tpu.render import mesh_kernel_v3 as jmesh_kernel_v3
 from ai_path_tracer_denoiser_tpu.render.mesh_kernel import mesh_intersect_bvh as jax_v2
 from ai_path_tracer_denoiser_tpu_torch.config import RenderOptions
@@ -157,6 +158,45 @@ def test_v2_lanes_are_pure_work_partitioning(lanes):
     tc = torch.from_numpy(cull_distances(o.shape[1], seed=1))
     wide = mesh_kernel.mesh_intersect_bvh(tb, tvec(o), tvec(d), tc)
     assert_bitwise(mesh_kernel.mesh_intersect_bvh(tb, tvec(o), tvec(d), tc, lanes=lanes), wide)
+
+
+@pytest.mark.parametrize("impl", ["v2", "v3"])
+def test_wrappers_refuse_a_mesh_over_the_face_cap_as_jax_does(impl):
+    """K7's and K8's wrappers refuse a hierarchy stand-in of
+    MAX_KERNEL_FACES + 1 faces before any device work, on the CPU too, as
+    the JAX wrappers do; at the cap they take it."""
+    assert mesh_kernel.MAX_KERNEL_FACES == jmesh_kernel.MAX_KERNEL_FACES == 1_000_000
+    v, nrm, m = soup(65)
+    jb, _ = jbvh.build_mesh_bvh(v, nrm, m)
+    tb, _ = tbvh.build_mesh_bvh(v, nrm, m)
+    o, d = rays(128)
+    over = mesh_kernel.MAX_KERNEL_FACES + 1
+    with pytest.raises(ValueError, match="MAX_KERNEL_FACES"):
+        jax_fn(impl)(dataclasses.replace(jb, num_faces=over), jvec(o), jvec(d),
+                     interpret=True)
+    with pytest.raises(ValueError, match="MAX_KERNEL_FACES"):
+        port_fn(impl)(dataclasses.replace(tb, num_faces=over), tvec(o), tvec(d))
+    from ai_path_tracer_denoiser_tpu_torch.render.mesh_kernel_v2p import _check_bvh
+    _check_bvh(dataclasses.replace(tb, num_faces=mesh_kernel.MAX_KERNEL_FACES))
+
+
+@pytest.mark.parametrize("impl", ["v2p", "v2", "v3", "binned"])
+def test_wrappers_refuse_a_hierarchy_of_another_cluster(impl):
+    """A hierarchy of another cluster (the JAX package's, built under
+    APTD_BVH_CLUSTER and carried across) is refused by every hierarchy
+    kernel's wrapper, on the CPU too: the kernels are compiled for 32 faces
+    per cluster.  The JAX tile kernel refuses a mismatch the same way."""
+    from ai_path_tracer_denoiser_tpu_torch.render import mesh_binned
+    tb, _ = tbvh.build_mesh_bvh(*soup(65))
+    jb, _ = jbvh.build_mesh_bvh(*soup(65))
+    o, d = rays(128)
+    fn = {"v2p": mesh_kernel_v2p.mesh_intersect_bvh_v2p, "binned":
+          mesh_binned.mesh_intersect_binned}.get(impl) or port_fn(impl)
+    assert tbvh.CLUSTER == tb.cluster == 32
+    with pytest.raises(ValueError, match="cluster=16"):
+        fn(dataclasses.replace(tb, cluster=16), tvec(o), tvec(d))
+    with pytest.raises(ValueError, match="cluster=16"):
+        jax_v2(dataclasses.replace(jb, cluster=16), jvec(o), jvec(d), interpret=True)
 
 
 @pytest.mark.parametrize("lanes", [0, 100, 2048])

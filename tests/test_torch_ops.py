@@ -185,6 +185,126 @@ def test_scatter_ray(variant):
         np.testing.assert_allclose(_np(got), _np(want), rtol=1e-4, atol=1e-5)
 
 
+def test_seeded_engine_alias_and_schrage_step_bitwise():
+    """``seeded_engine`` is ``make_seeded_engine``; ``lcg_next_schrage``
+    equals ``lcg_next`` and the JAX ``lcg_next_schrage`` over [1, M - 1],
+    edges included (tests/test_rng.py:86-92 for the port)."""
+    assert rng.seeded_engine is rng.make_seeded_engine
+    m, q = 2 ** 31 - 1, (2 ** 31 - 1) // 48271
+    edges = np.array([1, 2, 3, q - 1, q, q + 1, 2 * q, m // 2, m - 2, m - 1], np.int64)
+    states = np.concatenate([edges, np.random.default_rng(12).integers(1, m, N)])
+    want = np.asarray(jrng.lcg_next_schrage(jnp.asarray(states.astype(np.int32))))
+    got = rng.lcg_next_schrage(torch.from_numpy(states))
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+    assert torch.equal(got, rng.lcg_next(torch.from_numpy(states)))
+
+
+def _aos(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def test_aos_intersection_wrappers_match_jax():
+    """box/sphere/triangle/ray-AABB wrappers on (N, 3) rows against the
+    JAX ones, at the bars of the planes' tests above."""
+    o, d = _rays(13)
+    m, inv, invt = geom_matrices((0.3, -0.2, 0.1), (10.0, 25.0, -5.0), (2.0, 1.5, 1.0))
+    pairs = [(jisect.box_intersect(m, inv, jnp.asarray(o), jnp.asarray(d)),
+              intersect.box_intersect(m.tolist(), inv.tolist(), _aos(o), _aos(d))),
+             (jisect.sphere_intersect(m, inv, invt, jnp.asarray(o), jnp.asarray(d)),
+              intersect.sphere_intersect(m.tolist(), inv.tolist(), invt.tolist(),
+                                         _aos(o), _aos(d)))]
+    for want, got in pairs:
+        hit = np.asarray(want[0]) > 0
+        assert 100 < hit.sum() < len(hit)
+        np.testing.assert_array_equal(got[0].numpy() > 0, hit)
+        np.testing.assert_array_equal(got[3].numpy()[hit], np.asarray(want[3])[hit])
+        for g, w in zip(got[:3], want[:3]):
+            assert tuple(g.shape) == np.asarray(w).shape
+            np.testing.assert_allclose(g.numpy()[hit], np.asarray(w)[hit], rtol=1e-5, atol=1e-5)
+
+    r = np.random.default_rng(14)
+    v = r.uniform(-2, 2, (16, 3, 3)).astype(np.float32)
+    nv = r.normal(size=(16, 3, 3)).astype(np.float32)
+    jt, jp, jn = jisect.triangle_intersect(jnp.asarray(v), jnp.asarray(nv),
+                                           jnp.asarray(o), jnp.asarray(d))
+    tt, tp, tn = intersect.triangle_intersect(_aos(v), _aos(nv), _aos(o), _aos(d))
+    jt = np.asarray(jt)
+    hit = jt != -1
+    assert hit.sum() > 50 and tt.shape == jt.shape and tp.shape == np.asarray(jp).shape
+    np.testing.assert_array_equal(tt.numpy() != -1, hit)
+    np.testing.assert_allclose(tt.numpy()[hit], jt[hit], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tp.numpy()[hit], np.asarray(jp)[hit], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tn.numpy()[hit], np.asarray(jn)[hit], rtol=1e-5, atol=1e-5)
+
+    lb, ub = np.float32([-1, -1, -1]), np.float32([1, 0.5, 2])
+    np.testing.assert_array_equal(
+        intersect.ray_aabb_intersect(_aos(o), _aos(d), lb.tolist(), ub.tolist()).numpy(),
+        np.asarray(jisect.ray_aabb_intersect(jnp.asarray(o), jnp.asarray(d), lb, ub)))
+
+
+def test_intersect_scene_wrapper_matches_jax(cornell_scene):
+    """``intersect_scene`` on the Cornell box from rays inside it."""
+    from ai_path_tracer_denoiser_tpu_torch.scene import load_scene
+    scene = load_scene(str(REPO / "scenes" / "cornell_box.txt"), device="cpu")
+    r = np.random.default_rng(15)
+    o = r.uniform(-4, 4, (4096, 3)).astype(np.float32) + np.float32([0, 5, 0])
+    d = r.normal(size=(4096, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    want = jisect.intersect_scene(cornell_scene.geoms, cornell_scene.mesh,
+                                  jnp.asarray(o), jnp.asarray(d))
+    got = intersect.intersect_scene(scene.geoms, scene.mesh, _aos(o), _aos(d))
+    hit = np.asarray(want["t"]) > 0
+    assert hit.mean() > 0.8
+    for key in ("material_id", "is_inside"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+    # the render bar (ROADMAP C, "Render"): grazing sphere hits move the
+    # last bits of a few rays, so isclose(1e-5, 1e-5) on >= 99.8% of rays
+    for key in ("t", "point", "normal"):
+        g, w = got[key].numpy(), np.asarray(want[key])
+        assert g.shape == w.shape
+        close = np.isclose(g, w, rtol=1e-5, atol=1e-5).reshape(len(o), -1).all(axis=1)
+        assert close.mean() >= 0.998, (key, close.mean())
+
+
+def test_aos_bsdf_wrappers_match_jax():
+    n = 4096
+    r = np.random.default_rng(16)
+    _, ray_d = _rays(17, n)
+    normal = r.normal(size=(n, 3)).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    point = r.uniform(-1, 1, (n, 3)).astype(np.float32)
+    u1, u2 = r.uniform(0, 1, (2, n)).astype(np.float32)
+    eta = r.uniform(0.5, 1.8, n).astype(np.float32)
+    kind = r.integers(0, 4, n)
+    mat = dict(color=r.uniform(0, 1, (n, 3)).astype(np.float32),
+               specular_color=r.uniform(0, 1, (n, 3)).astype(np.float32),
+               has_reflective=np.isin(kind, (1, 3)).astype(np.float32),
+               has_refractive=np.isin(kind, (2, 3)).astype(np.float32),
+               index_of_refraction=r.uniform(1.1, 1.8, n).astype(np.float32))
+    J, T = jnp.asarray, _aos
+
+    def close(got, want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+
+    close(bsdf.reflect(T(ray_d), T(normal)), jbsdf.reflect(J(ray_d), J(normal)))
+    (td, tok), (jd, jok) = (bsdf.glm_refract(T(ray_d), T(normal), T(eta)),
+                            jbsdf.glm_refract(J(ray_d), J(normal), J(eta)))
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
+    assert 0 < np.asarray(jok).mean() < 1
+    close(td, jd)
+    np.testing.assert_array_equal(
+        bsdf.refract_possible(T(ray_d), T(normal), T(eta)).numpy(),
+        np.asarray(jbsdf.refract_possible(J(ray_d), J(normal), J(eta))))
+    close(bsdf.cosine_hemisphere_direction(T(normal), T(u1), T(u2)),
+          jbsdf.cosine_hemisphere_direction(J(normal), J(u1), J(u2)))
+    got = bsdf.scatter_ray(T(ray_d), T(point), T(normal), {k: T(v) for k, v in mat.items()},
+                           T(u1), T(u2))
+    want = jbsdf.scatter_ray(J(ray_d), J(point), J(normal), {k: J(v) for k, v in mat.items()},
+                             J(u1), J(u2))
+    for g, w in zip(got, want):
+        close(g, w)
+
+
 def test_port_imports_no_jax():
     """Neither the port nor chip_smoke.py imports jax or the JAX package."""
     bad = re.compile(r"^\s*(import|from)\s+(jax\b|ai_path_tracer_denoiser_tpu\b(?!_torch))",
