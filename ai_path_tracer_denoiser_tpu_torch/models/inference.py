@@ -19,6 +19,7 @@ import dataclasses
 import torch
 
 from ..config import ModelOptions
+from ..utils.timers import span
 from .conv_kernel import conv3x3_act, conv3x3_act_chw
 from .autoencoder import init_hidden
 from .layers import max_pool_2x2, upsample_nearest_2x
@@ -115,29 +116,32 @@ def apply_frame_fast(folded: Dict, x: torch.Tensor, hidden: Dict,
     new_hidden, skips = {}, []
     y = x.to(compute_dtype)
     for i in range(1, 6):
-        p = folded[f"enc{i}"]
-        out1 = ca(p["conv1"], y)
-        hcat = torch.cat([out1, hidden[f"enc{i}"].to(compute_dtype)], dim=-1)
-        # bn2's surviving affine rides conv2's epilogue
-        out2 = ca(p["conv2"], hcat, aff=p["affine2"])
-        out3 = ca(p["conv3"], out2)
-        new_hidden[f"enc{i}"] = out3
-        y = max_pool_2x2(out3)
-        skips.append(y)
+        with span(f"denoise.enc{i}"):
+            p = folded[f"enc{i}"]
+            out1 = ca(p["conv1"], y)
+            hcat = torch.cat([out1, hidden[f"enc{i}"].to(compute_dtype)], dim=-1)
+            # bn2's surviving affine rides conv2's epilogue
+            out2 = ca(p["conv2"], hcat, aff=p["affine2"])
+            out3 = ca(p["conv3"], out2)
+            new_hidden[f"enc{i}"] = out3
+            y = max_pool_2x2(out3)
+            skips.append(y)
 
-    p = folded["bottleneck"]
-    out1 = ca(p["conv1"], y)
-    hcat = torch.cat([out1, hidden["bottleneck"].to(compute_dtype)], dim=-1)
-    out2 = ca(p["conv2"], hcat)
-    y = ca(p["conv3"], out2)
-    new_hidden["bottleneck"] = y
+    with span("denoise.bottleneck"):
+        p = folded["bottleneck"]
+        out1 = ca(p["conv1"], y)
+        hcat = torch.cat([out1, hidden["bottleneck"].to(compute_dtype)], dim=-1)
+        out2 = ca(p["conv2"], hcat)
+        y = ca(p["conv3"], out2)
+        new_hidden["bottleneck"] = y
 
     for i in range(5, 0, -1):
-        p = folded[f"dec{i}"]
-        y = torch.cat([y, skips[i - 1]], dim=-1)
-        y = upsample_nearest_2x(y)
-        y = ca(p["conv1"], y)
-        y = ca(p["conv2"], y)
+        with span(f"denoise.dec{i}"):
+            p = folded[f"dec{i}"]
+            y = torch.cat([y, skips[i - 1]], dim=-1)
+            y = upsample_nearest_2x(y)
+            y = ca(p["conv1"], y)
+            y = ca(p["conv2"], y)
     return y.to(torch.float32), new_hidden
 
 
@@ -165,11 +169,12 @@ def apply_frame_fast_padded(folded: Dict, x: torch.Tensor, hidden: Dict,
     """``apply_frame_fast`` for any resolution: edge-replicate pad the
     bottom/right up to the next multiple of 32, denoise, crop back.
     ``hidden`` lives at the padded resolution."""
-    _, h, w, _ = x.shape
-    x = edge_pad(x, *padded_resolution(h, w))
-    y, hidden = apply_frame_fast(folded, x, hidden, options, compute_dtype,
-                                 conv_impl)
-    return y[:, :h, :w, :], hidden
+    with span("denoise.frame"):
+        _, h, w, _ = x.shape
+        x = edge_pad(x, *padded_resolution(h, w))
+        y, hidden = apply_frame_fast(folded, x, hidden, options, compute_dtype,
+                                     conv_impl)
+        return y[:, :h, :w, :], hidden
 
 
 def apply_sequence_fast(folded: Dict, x_seq: torch.Tensor,

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.timers import host_read
+
 _MASK = 0xFFFFFFFF
 # minstd_rand constants
 _LCG_A = 48271
@@ -25,10 +27,14 @@ _TWO_M32 = torch.tensor(2.0 ** -32, dtype=torch.float32)
 
 
 def _u32(a, like=None) -> torch.Tensor:
-    """Any integer input -> int64 tensor holding uint32 values."""
+    """Any integer input -> int64 tensor holding uint32 values, on ``like``'s
+    device if it is a tensor (a copy from the host that waits for the
+    device's queue: counted as ``sync.rng_scalar``)."""
     if not isinstance(a, torch.Tensor):
-        device = like.device if isinstance(like, torch.Tensor) else None
-        return torch.tensor(int(a) & _MASK, dtype=torch.int64, device=device)
+        if isinstance(like, torch.Tensor):
+            with host_read("rng_scalar"):
+                return torch.tensor(int(a) & _MASK, dtype=torch.int64, device=like.device)
+        return torch.tensor(int(a) & _MASK, dtype=torch.int64)
     return a.to(torch.int64) & _MASK
 
 
@@ -86,7 +92,9 @@ def lcg_next(state: torch.Tensor) -> torch.Tensor:
 def lcg_uniform(state: torch.Tensor):
     """Draw one uniform float in [0, 1) and return (value, new_state)."""
     new_state = lcg_next(state)
-    u = new_state.to(torch.float32) * _INV_M.to(new_state.device)
+    with host_read("rng_scale"):        # a copy from the host, as above
+        inv_m = _INV_M.to(new_state.device)
+    u = new_state.to(torch.float32) * inv_m
     return u, new_state
 
 

@@ -26,8 +26,9 @@ result equals ``mesh_intersect_bvh_v2p``'s.
 A batch with more live rays than ``lcap``, more overflow rays than ``lcapb``
 or a ray in more than ``c_a + c_b`` bins goes to the per-ray traversal
 (render/mesh_kernel_v2p.py) for the whole call: a Python branch on a value
-read back from the device, one synchronisation per call.  ``PATHS`` counts
-how often each side ran.
+read back from the device, one synchronisation per call (the host read
+``sync.binned_fit``).  The counters ``binned.fast`` and ``binned.fallback``
+(utils/timers.py) count how often each side ran.
 
 Unlike the JAX function, phase 1 is called with the clamped slot count
 ``c_a`` (not ``C_A``) and the fit test uses ``c_a + c_b``, so meshes of
@@ -45,6 +46,7 @@ from ..ops.bvh import CLUSTER, FANOUT, MeshBVH
 from ..ops.intersect import _triangle_t
 from ..ops.vec3 import Vec3
 from ..utils.cuda_build import CudaKernel, check
+from ..utils.timers import count, host_read
 from .mesh_kernel_v2p import (EDGE_COLS, _check_bvh, _slab_live, mesh_intersect_bvh_v2p,
                               packed_edges, ray_planes, table_ptr)
 
@@ -56,9 +58,6 @@ C_B = int(os.environ.get("APTD_BINNED_CB", "20"))   # extra slots for overflow r
 _GRANULE = 1024                 # the packing prefixes round up to this
 _INF = float("inf")
 _DEADKEY = 1 << 20              # sorts past every real bin id
-
-# Calls that took the packed pipeline / fell back to the per-ray traversal.
-PATHS = {"fast": 0, "fallback": 0}
 
 
 def _declare_phase1(lib: ctypes.CDLL) -> None:
@@ -405,11 +404,13 @@ def mesh_intersect_binned(bvh: MeshBVH, o: Vec3, d: Vec3,
     n_over = (counts > c_a).sum()
     most = counts.max() if lcap else counts.sum()
     fits = (live0 <= lcap) & (n_over <= lcapb) & (most <= c_a + c_b)
-    if bool(fits):      # reads the device: one synchronisation per call
-        PATHS["fast"] += 1
+    with host_read("binned_fit"):
+        fits = bool(fits)
+    if fits:
+        count("binned.fast")
         return _binned_core(bvh, po, pd, ptc, pidx, slots_a, counts, bounds,
                             n, lcap, lcapb, c_a, c_b)
-    PATHS["fallback"] += 1
+    count("binned.fallback")
     return mesh_intersect_bvh_v2p(bvh, o, d, t_cull)
 
 

@@ -35,11 +35,12 @@ import torch
 
 from ..config import RenderOptions
 from ..ops.bsdf import scatter_ray_v
-from ..ops.intersect import (intersect_scene_v, octant_cell_key,
+from ..ops.intersect import (intersect_scene_v, mesh_box, octant_cell_key,
                              ray_aabb_intersect_v, resolve_mesh_impl)
 from ..ops.rng import draw_uniforms
 from ..ops.vec3 import Vec3, where as vwhere
 from ..scene.structs import Camera, Geoms, Scene
+from ..utils.timers import host_read, span
 from .motion_blur import advance_geoms
 
 
@@ -184,11 +185,12 @@ def _maybe_sort_by_material(options: RenderOptions, isect_mat, alive, carry):
     when enabled."""
     if not options.sort_material:
         return carry
-    key = torch.where(alive, isect_mat, 1 << 30)
-    perm = torch.sort(key, stable=True).indices
-    ray_o, ray_d, color, remaining, pixel_index = carry
-    return (*(Vec3(*(c[perm] for c in v)) for v in (ray_o, ray_d, color)),
-            remaining[perm], pixel_index[perm])
+    with span("render.sort"):
+        key = torch.where(alive, isect_mat, 1 << 30)
+        perm = torch.sort(key, stable=True).indices
+        ray_o, ray_d, color, remaining, pixel_index = carry
+        return (*(Vec3(*(c[perm] for c in v)) for v in (ray_o, ray_d, color)),
+                remaining[perm], pixel_index[perm])
 
 
 def trace_iteration(scene: Scene, options: RenderOptions,
@@ -224,77 +226,85 @@ def trace_iteration(scene: Scene, options: RenderOptions,
                        kernel_impl=options.mesh_kernel_impl)
 
     # ---- depth 0: G-buffer emission (pathtrace.cu:295-304, 379-387) ----
-    cache = state.cache
-    if cache is not None and options.cache_first_bounce and iteration > 1:
-        # without jitter or motion the primary rays repeat: iteration 1's hit
-        isect0 = dict(t=cache[0], point=cache[1], normal=cache[2],
-                      material_id=cache[3])
-    else:
-        isect0 = intersect_scene_v(geoms, scene.mesh, ray_o, ray_d, **mesh_kwargs)
-        if options.cache_first_bounce:
-            cache = (isect0["t"], isect0["point"], isect0["normal"],
-                     isect0["material_id"])
-    segments = n
-    gbuf = state.gbuf
-    write = None
-    if options.denoise:
-        write = (isect0["t"] >= 0.0) & (iteration == 1)
-        nrm = isect0["normal"]
-        gbuf = torch.stack([torch.where(write, nrm.x, gbuf[0]),
-                            torch.where(write, nrm.y, gbuf[1]),
-                            torch.where(write, nrm.z, gbuf[2]),
-                            torch.where(write, isect0["t"], gbuf[3]),
-                            gbuf[4], gbuf[5], gbuf[6]])
-    ray_o, ray_d, color, remaining = _shade(
-        scene, options, rng_iter, isect0, ray_d, color, remaining, pixel_ids)
-    if options.denoise:
-        # albedo = throughput after the first shade
-        gbuf = torch.stack([gbuf[0], gbuf[1], gbuf[2], gbuf[3],
-                            torch.where(write, color.x, gbuf[4]),
-                            torch.where(write, color.y, gbuf[5]),
-                            torch.where(write, color.z, gbuf[6])])
+    with span("render.bounce"):
+        cache = state.cache
+        if cache is not None and options.cache_first_bounce and iteration > 1:
+            # without jitter or motion the primary rays repeat: iteration 1's hit
+            isect0 = dict(t=cache[0], point=cache[1], normal=cache[2],
+                          material_id=cache[3])
+        else:
+            with span("render.intersect"):
+                isect0 = intersect_scene_v(geoms, scene.mesh, ray_o, ray_d,
+                                           **mesh_kwargs)
+            if options.cache_first_bounce:
+                cache = (isect0["t"], isect0["point"], isect0["normal"],
+                         isect0["material_id"])
+        segments = n
+        gbuf = state.gbuf
+        write = None
+        if options.denoise:
+            write = (isect0["t"] >= 0.0) & (iteration == 1)
+            nrm = isect0["normal"]
+            gbuf = torch.stack([torch.where(write, nrm.x, gbuf[0]),
+                                torch.where(write, nrm.y, gbuf[1]),
+                                torch.where(write, nrm.z, gbuf[2]),
+                                torch.where(write, isect0["t"], gbuf[3]),
+                                gbuf[4], gbuf[5], gbuf[6]])
+        with span("render.shade"):
+            ray_o, ray_d, color, remaining = _shade(
+                scene, options, rng_iter, isect0, ray_d, color, remaining, pixel_ids)
+        if options.denoise:
+            # albedo = throughput after the first shade
+            gbuf = torch.stack([gbuf[0], gbuf[1], gbuf[2], gbuf[3],
+                                torch.where(write, color.x, gbuf[4]),
+                                torch.where(write, color.y, gbuf[5]),
+                                torch.where(write, color.z, gbuf[6])])
 
-    # Carry-level coherence sort, secondary bounces only (primaries are
-    # pixel-coherent already): one stable sort moves the whole path state,
-    # rays stay in sorted order through shading, and ``pixel_index`` carries
-    # each lane's pixel.  The binned pipeline packs rays itself, so the
-    # permutation would be pure overhead there.
-    carry_sort = (options.mesh_octant_sort and use_bvh
-                  and scene.mesh.num_faces > 0 and scene.mesh.bvh is not None
-                  and resolve_mesh_impl(scene.mesh, options.mesh_kernel_impl)
-                  != "binned")
-    pixel_index = torch.arange(n, dtype=torch.int64, device=dev)   # local
-    ray_o, ray_d, color, remaining, pixel_index = _maybe_sort_by_material(
-        options, isect0["material_id"], remaining > 0,
-        (ray_o, ray_d, color, remaining, pixel_index))
+        # Carry-level coherence sort, secondary bounces only (primaries are
+        # pixel-coherent already): one stable sort moves the whole path state,
+        # rays stay in sorted order through shading, and ``pixel_index`` carries
+        # each lane's pixel.  The binned pipeline packs rays itself, so the
+        # permutation would be pure overhead there.
+        carry_sort = (options.mesh_octant_sort and use_bvh
+                      and scene.mesh.num_faces > 0 and scene.mesh.bvh is not None
+                      and resolve_mesh_impl(scene.mesh, options.mesh_kernel_impl)
+                      != "binned")
+        pixel_index = torch.arange(n, dtype=torch.int64, device=dev)   # local
+        ray_o, ray_d, color, remaining, pixel_index = _maybe_sort_by_material(
+            options, isect0["material_id"], remaining > 0,
+            (ray_o, ray_d, color, remaining, pixel_index))
 
     # ---- remaining bounces; stop once every path has ended ----
     for _ in range(depth_max - 1):
-        live = int((remaining > 0).sum())
-        if live == 0 and options.stream_compaction:
-            break
-        segments += live
-        if carry_sort:
-            dead = remaining == 0
-            if options.ray_culling:
-                dead = dead | ~ray_aabb_intersect_v(
-                    ray_o, ray_d, scene.mesh.aabb_lb.tolist(),
-                    scene.mesh.aabb_ub.tolist())
-            key = octant_cell_key(ray_o, ray_d, dead, options.mesh_sort_cells)
-            perm = torch.sort(key, stable=True).indices
-            ray_o, ray_d, color = (Vec3(*(c[perm] for c in v))
-                                   for v in (ray_o, ray_d, color))
-            remaining, pixel_index = remaining[perm], pixel_index[perm]
-        isect = intersect_scene_v(geoms, scene.mesh, ray_o, ray_d,
-                                  active=remaining != 0,
-                                  kernel_lanes=options.mesh_kernel_lanes,
-                                  **mesh_kwargs)
-        ray_o, ray_d, color, remaining = _shade(
-            scene, options, rng_iter, isect, ray_d, color, remaining,
-            pixel_index + pixel_offset)
-        ray_o, ray_d, color, remaining, pixel_index = _maybe_sort_by_material(
-            options, isect["material_id"], remaining > 0,
-            (ray_o, ray_d, color, remaining, pixel_index))
+        with span("render.bounce"):
+            with host_read("live_count"):
+                live = int((remaining > 0).sum())
+            if live == 0 and options.stream_compaction:
+                break
+            segments += live
+            if carry_sort:
+                with span("render.sort"):
+                    dead = remaining == 0
+                    if options.ray_culling:
+                        dead = dead | ~ray_aabb_intersect_v(
+                            ray_o, ray_d, *mesh_box(scene.mesh))
+                    key = octant_cell_key(ray_o, ray_d, dead, options.mesh_sort_cells)
+                    perm = torch.sort(key, stable=True).indices
+                    ray_o, ray_d, color = (Vec3(*(c[perm] for c in v))
+                                           for v in (ray_o, ray_d, color))
+                    remaining, pixel_index = remaining[perm], pixel_index[perm]
+            with span("render.intersect"):
+                isect = intersect_scene_v(geoms, scene.mesh, ray_o, ray_d,
+                                          active=remaining != 0,
+                                          kernel_lanes=options.mesh_kernel_lanes,
+                                          **mesh_kwargs)
+            with span("render.shade"):
+                ray_o, ray_d, color, remaining = _shade(
+                    scene, options, rng_iter, isect, ray_d, color, remaining,
+                    pixel_index + pixel_offset)
+            ray_o, ray_d, color, remaining, pixel_index = _maybe_sort_by_material(
+                options, isect["material_id"], remaining > 0,
+                (ray_o, ray_d, color, remaining, pixel_index))
 
     # finalGather (pathtrace.cu:393-402).  Without a sort of the carry lane i
     # is pixel i: a plain add.  With one, scatter-add by the permuted index;
@@ -319,13 +329,14 @@ def assemble_gbuffer(state: RenderLoopState, resolution: Tuple[int, int],
     ch0-2 RGB = accum / iteration, ch3-5 normal, ch6 depth, ch7-9 albedo;
     ``flip_horizontal`` reproduces the reference's mirrored layout.
     """
-    w, h = resolution
-    it = float(max(state.iteration, 1))
-    rgb = state.accum.to(torch.float32) / it
-    tensor = torch.cat([rgb, state.gbuf]).reshape(10, h, w)
-    if options.flip_horizontal:
-        tensor = tensor.flip(2)
-    return tensor
+    with span("render.gbuffer"):
+        w, h = resolution
+        it = float(max(state.iteration, 1))
+        rgb = state.accum.to(torch.float32) / it
+        tensor = torch.cat([rgb, state.gbuf]).reshape(10, h, w)
+        if options.flip_horizontal:
+            tensor = tensor.flip(2)
+        return tensor
 
 
 def current_image(state: RenderLoopState, resolution: Tuple[int, int]) -> torch.Tensor:
@@ -373,7 +384,8 @@ def render_iterations(scene: Scene, options: RenderOptions, num_iterations: int,
         k = min(per_dispatch, remaining)
         if backend == "pallas":
             from .cuda_backend import render_cuda
-            state = render_cuda(scene, options, k, state, pixel_offset)
+            with span("render.k1"):
+                state = render_cuda(scene, options, k, state, pixel_offset)
         else:
             for _ in range(k):
                 state = trace_iteration(scene, options, state, differentiable,
@@ -411,5 +423,6 @@ def render_gbuffer_frame(scene: Scene, options: RenderOptions = RenderOptions(),
     Every frame restarts accumulation at iteration 0 (the interactive
     loop's camchanged path, main.cpp:122-165).
     """
-    state = init_render_state(scene, options)
-    return render(scene, options, num_iterations=1, state=state)
+    with span("render.frame"):
+        state = init_render_state(scene, options)
+        return render(scene, options, num_iterations=1, state=state)

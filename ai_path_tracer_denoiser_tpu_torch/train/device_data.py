@@ -25,6 +25,7 @@ import torch
 from ..config import ModelOptions, TrainOptions
 from ..models.export import sorted_leaves
 from ..utils.device import resolve_device
+from ..utils.timers import span
 from .schedule import step_lr
 from .trainer import TrainState, _EpochLog, train_step
 
@@ -73,10 +74,11 @@ def load_device_dataset(dataset, dtype=torch.bfloat16, chunk: int = 96,
 def _crop_batch(X, Y, starts, cys, cxs, t, ch, cw):
     """(N,) windows -> time-major (T, N, ch, cw, C) batches, on the device.
     ``starts``/``cys``/``cxs`` are host integer sequences."""
-    xs = torch.stack([X[s:s + t, cy:cy + ch, cx:cx + cw]
-                      for s, cy, cx in zip(starts, cys, cxs)], dim=1)
-    ys = torch.stack([Y[s:s + t, cy:cy + ch, cx:cx + cw]
-                      for s, cy, cx in zip(starts, cys, cxs)], dim=1)
+    with span("train.crop"):
+        xs = torch.stack([X[s:s + t, cy:cy + ch, cx:cx + cw]
+                          for s, cy, cx in zip(starts, cys, cxs)], dim=1)
+        ys = torch.stack([Y[s:s + t, cy:cy + ch, cx:cx + cw]
+                          for s, cy, cx in zip(starts, cys, cxs)], dim=1)
     return xs, ys
 
 

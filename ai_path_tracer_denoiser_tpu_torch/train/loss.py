@@ -30,6 +30,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ..utils.timers import host_read
+
 # Gaussian-ramp frame weights val_j (train.py:77): exp(-(6-j)^2/8) rounded.
 FRAME_RAMP = (0.011, 0.044, 0.135, 0.325, 0.607, 0.882, 1.0)
 
@@ -68,7 +70,8 @@ def log_filter(x: torch.Tensor) -> torch.Tensor:
     conv2d sums the Laplacian over input channels.
     """
     c = x.shape[-1]
-    k = torch.tensor(_LOG_KERNEL, dtype=x.dtype, device=x.device)
+    with host_read("loss_kernel"):      # a copy from the host: waits for the queue
+        k = torch.tensor(_LOG_KERNEL, dtype=x.dtype, device=x.device)
     kernel = k[None, None].expand(1, c, -1, -1)
     y = F.conv2d(x.permute(0, 3, 1, 2), kernel, padding=1)
     return y.permute(0, 2, 3, 1)

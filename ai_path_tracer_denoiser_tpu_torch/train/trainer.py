@@ -38,6 +38,7 @@ from ..models.autoencoder import apply_sequence, init_autoencoder
 from ..models.export import (ADAM_B1, ADAM_B2, ADAM_EPS, sorted_leaves,
                              tree_from_leaves)
 from ..utils.device import resolve_device
+from ..utils.timers import span
 from .loss import sequence_loss
 from .schedule import step_lr
 
@@ -88,15 +89,17 @@ def loss_fn(params, bn_state, inputs, targets,
     inputs: (T, N, H, W, 10) time-major; targets: (T, N, H, W, 3).
     Returns (total, (metrics, new_bn_state)).
     """
-    outputs, _, new_bn = apply_sequence(params, bn_state, inputs,
-                                        train=True, bf16=bf16,
-                                        axis_name=axis_name,
-                                        remat=train_options.remat_frames,
-                                        options=model_options)
-    total, metrics = sequence_loss(
-        outputs, targets, train_options.w_spatial, train_options.w_gradient,
-        train_options.w_temporal, train_options.frame_ramp[:inputs.shape[0]],
-        axis_name=axis_name)
+    with span("train.forward"):
+        outputs, _, new_bn = apply_sequence(params, bn_state, inputs,
+                                            train=True, bf16=bf16,
+                                            axis_name=axis_name,
+                                            remat=train_options.remat_frames,
+                                            options=model_options)
+    with span("train.loss"):
+        total, metrics = sequence_loss(
+            outputs, targets, train_options.w_spatial, train_options.w_gradient,
+            train_options.w_temporal, train_options.frame_ramp[:inputs.shape[0]],
+            axis_name=axis_name)
     return total, (metrics, new_bn)
 
 
@@ -113,7 +116,8 @@ def loss_and_grads(state: TrainState, inputs, targets,
     total, (metrics, new_bn) = loss_fn(
         params, state.bn_state, inputs, targets, train_options,
         train_options.bf16_compute, model_options, axis_name)
-    grads = list(torch.autograd.grad(total, leaves))
+    with span("train.backward"):
+        grads = list(torch.autograd.grad(total, leaves))
     keys = list(metrics)
     metrics = [metrics[k].detach() for k in keys]
     if axis_name is not None:
@@ -172,11 +176,13 @@ def train_step(state: TrainState, inputs: torch.Tensor, targets: torch.Tensor,
     """One optimization step (forward 7 frames -> single backward -> Adam).
     ``axis_name``: the data-parallel process group; the returned state is
     then the same on every rank."""
-    metrics, new_bn, grads = loss_and_grads(state, inputs, targets,
-                                            train_options, model_options,
-                                            axis_name)
-    params, opt_state = adam_update(state.params, grads, state.opt_state,
-                                    state.lr)
+    with span("train.step"):
+        metrics, new_bn, grads = loss_and_grads(state, inputs, targets,
+                                                train_options, model_options,
+                                                axis_name)
+        with span("train.optimizer"):
+            params, opt_state = adam_update(state.params, grads, state.opt_state,
+                                            state.lr)
     return TrainState(params=params, bn_state=new_bn, opt_state=opt_state,
                       step=state.step + 1, lr=state.lr), metrics
 

@@ -156,6 +156,14 @@ CAMPAIGN_TIMED_STEPS = 5      # timed train steps a side, remat and plain in tur
 CAMPAIGN_EVAL_BAR = 5e-3
 
 
+def binned_paths():
+    """Calls of the binned pipeline that took the packed path / fell back,
+    from the port's counters (utils/timers.py)."""
+    from ai_path_tracer_denoiser_tpu_torch.utils.timers import totals
+    now = totals()
+    return {side: now.get("binned." + side, 0) for side in ("fast", "fallback")}
+
+
 def require(cond, what):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
@@ -2326,8 +2334,8 @@ def main():
                 recording(mesh_binned, "_phase1", calls["phase1"]), \
                 recording(mesh_binned, "_pair_call", calls["pair"]), \
                 recording(mesh_binned, "mesh_intersect_binned", calls["binned"],
-                          after=lambda: calls["paths"].append(dict(mesh_binned.PATHS))):
-            before = dict(mesh_binned.PATHS)
+                          after=lambda: calls["paths"].append(binned_paths())):
+            before = binned_paths()
             render_gbuffer_frame(sc, RenderOptions(mesh_kernel_impl=impl, **options))
         torch.cuda.synchronize()
         # which side each recorded call of the binned pipeline took
@@ -2469,9 +2477,9 @@ def main():
                 want = plain_v2p(*b_args)
             frame_side = rec["binned"]["sides"][bounce]
             for caps, side in (({}, frame_side), ({"lcap": 64, "lcapb": 64}, "fallback")):
-                paths = dict(mesh_binned.PATHS)
+                paths = binned_paths()
                 whole = flat_hit(mesh_binned.mesh_intersect_binned(*b_args, **caps))
-                took = {k: mesh_binned.PATHS[k] - paths[k] for k in paths}
+                took = {k: v - paths[k] for k, v in binned_paths().items()}
                 same = all(torch.equal(a, b) for a, b in zip(whole, want))
                 emit({"phase": "mesh_binned_check", "scene": name, "bounce": bounce,
                       "rays": n, "caps": caps or "default", **took,
@@ -2538,12 +2546,12 @@ def main():
     for name, path in MESH_SCENES.items():
         for k in kernels:
             k.launches = 0
-        mesh_binned.PATHS.update(fast=0, fallback=0)
+        paths0 = binned_paths()
         out_dir = os.path.join(OUT_DIR, f"frames_{name}")
         records = cli.main(["interactive", path, "--frames", str(MESH_FRAMES),
                             "--model", MODEL, "--out-dir", out_dir, "--save-arrays"])
         counts = {k.name: k.launches for k in kernels}
-        paths = dict(mesh_binned.PATHS)
+        paths = {k: v - paths0[k] for k, v in binned_paths().items()}
         mesh_launches[name] = counts
         require(counts["render_megakernel"] == 0, f"{name}: K1 launches {counts}")
         require(counts["conv3x3_act"] == 28 * MESH_FRAMES, f"{name}: K2 launches {counts}")

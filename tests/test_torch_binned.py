@@ -21,6 +21,7 @@ import torch
 from ai_path_tracer_denoiser_tpu.render import mesh_binned as jbinned
 from ai_path_tracer_denoiser_tpu_torch.ops import bvh as tbvh
 from ai_path_tracer_denoiser_tpu_torch.render import mesh_binned, mesh_kernel_v2p
+from ai_path_tracer_denoiser_tpu_torch.utils import timers
 from test_torch_bvh import (RTOL, ATOL, _assert_close, _boundary_rays, assert_same_hits,
                             both_bvhs, cull_distances, jvec, rays, soup, tvec)
 
@@ -33,7 +34,7 @@ def _cull(tc):
 
 def assert_equals_scan(tb, o, d, tc, expect=None, **caps):
     """The binned pipeline equals the dense scan bit for bit (CPU)."""
-    before = dict(mesh_binned.PATHS)
+    before = timers.totals()
     got = mesh_binned.mesh_intersect_binned(tb, tvec(o), tvec(d), _cull(tc), **caps)
     want = mesh_kernel_v2p.mesh_intersect_bvh_v2p_plain(tb, tvec(o), tvec(d), _cull(tc))
     assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
@@ -41,7 +42,9 @@ def assert_equals_scan(tb, o, d, tc, expect=None, **caps):
         for ca, cb in zip(a, b):
             assert torch.equal(ca, cb)
     if expect:
-        assert mesh_binned.PATHS[expect] == before[expect] + 1, mesh_binned.PATHS
+        key = "binned." + expect
+        after = timers.totals()
+        assert after.get(key, 0) == before.get(key, 0) + 1, after
     return got
 
 
@@ -217,10 +220,10 @@ def test_binned_matches_jax_binned(with_cull):
     want = jbinned.mesh_intersect_binned(
         jb, jvec(o), jvec(d), None if tc is None else jnp.asarray(tc), interpret=True,
         lcap=n, lcapb=n)
-    fast = mesh_binned.PATHS["fast"]
+    fast = timers.totals().get("binned.fast", 0)
     got = mesh_binned.mesh_intersect_binned(tb, tvec(o), tvec(d), _cull(tc),
                                             lcap=n, lcapb=n)
-    assert mesh_binned.PATHS["fast"] == fast + 1
+    assert timers.totals()["binned.fast"] == fast + 1
     # One grazing hit of these 517-714 (1/a large in the triangle test) is
     # ill-conditioned: XLA:CPU and PyTorch differ there by 6e-6 in t and
     # 5e-6 in the point.  So up to 0.5% of the hits may miss the bar, and

@@ -218,6 +218,7 @@ from ai_path_tracer_denoiser_tpu.ops import intersect as jintersect
 from ai_path_tracer_denoiser_tpu_torch.ops import bvh, intersect
 from ai_path_tracer_denoiser_tpu_torch.ops.vec3 import Vec3
 from ai_path_tracer_denoiser_tpu_torch.render import mesh_binned, mesh_kernel_v2p
+from ai_path_tracer_denoiser_tpu_torch.utils.timers import totals
 
 mesh = types.SimpleNamespace(bvh=types.SimpleNamespace(n_supers_real=2))
 for thresh, want in (("2", "binned"), ("3", "v2p")):
@@ -243,9 +244,9 @@ for lcap, lcapb, expect in ((None, None, [1024, 1024]), ("3072", "2048", [3072, 
         else:
             os.environ[key] = val
     sizes.clear()
-    fast = mesh_binned.PATHS["fast"]
+    fast = totals().get("binned.fast", 0)
     got = mesh_binned.mesh_intersect_binned(tb, o, d, tc)
-    assert sizes == expect and mesh_binned.PATHS["fast"] == fast + 1, sizes
+    assert sizes == expect and totals()["binned.fast"] == fast + 1, sizes
     assert torch.equal(got[0], want[0]) and torch.equal(got[3], want[3])
 print("ok")
 """)

@@ -18,10 +18,10 @@ import torch
 
 from ai_path_tracer_denoiser_tpu_torch.config import RenderOptions
 from ai_path_tracer_denoiser_tpu_torch.render import (cuda_backend, init_render_state,
-                                                      mesh_binned, render,
-                                                      trace_iteration)
+                                                      render, trace_iteration)
 from ai_path_tracer_denoiser_tpu_torch.render.wavefront import _resolve_backend
 from ai_path_tracer_denoiser_tpu_torch.scene import derive_camera, load_scene
+from ai_path_tracer_denoiser_tpu_torch.utils import timers
 from test_torch_render import check_plain_renderer_matches_jax
 
 torch.set_num_threads(2)
@@ -65,13 +65,13 @@ def torus_dense_scan():
 ], ids=lambda k: "-".join(f"{a}={b}" for a, b in k.items()) or "auto")
 def test_mesh_paths_render_the_same_image(torus_dense_scan, kwargs):
     scene = _torus()
-    fast = mesh_binned.PATHS["fast"]
+    fast = timers.totals().get("binned.fast", 0)
     image, gbuffer, state = render(scene, RenderOptions(**kwargs), num_iterations=2)
     assert torch.equal(image, torus_dense_scan[0])
     assert torch.equal(gbuffer, torus_dense_scan[1])
     assert state.iteration == 2
     if kwargs.get("mesh_kernel_impl") == "binned":
-        assert mesh_binned.PATHS["fast"] > fast
+        assert timers.totals()["binned.fast"] > fast
 
 
 @pytest.mark.parametrize("lanes", [2048, 100])
