@@ -70,12 +70,13 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "geom_common.cuh"
 
-constexpr int kGeomRow = 48;   // transform, inverse, inverse-transpose (4x4 each)
+namespace {
+using namespace aptd_geom;
+
 constexpr int kMatRow = 10;    // color3, specular3, refl, refr, ior, emittance
 constexpr int kFaceRow = 18;   // v0, v1, v2, n0, n1, n2
-constexpr int kCube = 1;
 
 constexpr int kAntialias = 1;
 constexpr int kRngFast = 2;
@@ -85,9 +86,7 @@ constexpr int kDielectric = 16;
 constexpr int kNormalView = 32;
 constexpr int kRayCulling = 64;
 
-constexpr float kEpsPoint = 1e-4f;
 constexpr float kFltEps = 1.1920929e-07f;
-constexpr float kBig = 1e38f;
 constexpr float kInvM = (float)(1.0 / 2147483647.0);
 constexpr float kTwoM32 = 2.3283064365386963e-10f;   // 2^-32
 constexpr float kSqrtOneThird = 0.5773502691896258f;
@@ -97,69 +96,8 @@ struct Cam {
   float pos[3], view[3], up[3], right[3], pl[2];
 };
 
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 v3(float x, float y, float z) {
-  V3 r;
-  r.x = x;
-  r.y = y;
-  r.z = z;
-  return r;
-}
-__device__ __forceinline__ V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
-__device__ __forceinline__ V3 mul(V3 a, V3 b) { return v3(a.x * b.x, a.y * b.y, a.z * b.z); }
-__device__ __forceinline__ V3 scale(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
-__device__ __forceinline__ V3 neg(V3 a) { return v3(-a.x, -a.y, -a.z); }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
-}
-__device__ __forceinline__ float norm(V3 a) { return sqrtf(dot(a, a)); }
-__device__ __forceinline__ V3 normalized(V3 a) { return scale(a, rsqrtf(dot(a, a))); }
-__device__ __forceinline__ V3 normalized_safe(V3 a) {
-  float n2 = dot(a, a);
-  return scale(a, n2 > 0.0f ? rsqrtf(n2) : 1.0f);
-}
 __device__ __forceinline__ V3 vabs(V3 a) { return v3(fabsf(a.x), fabsf(a.y), fabsf(a.z)); }
 __device__ __forceinline__ V3 reflect(V3 i, V3 n) { return sub(i, scale(n, 2.0f * dot(n, i))); }
-
-// NaN-propagating min/max (torch.minimum/maximum semantics).  Hopper's
-// min.NaN / max.NaN do it in one instruction; the witness keeps the first
-// version's compare-and-select.  Either way a NaN operand gives a NaN and
-// other operands the IEEE min/max; only the NaN's payload may differ, and a
-// NaN here never reaches an output (it only fails the hit comparisons).
-__device__ __forceinline__ float jmin(float a, float b) {
-#ifdef K1_ONE_PIXEL_PER_THREAD
-  return (a != a || b != b) ? a + b : fminf(a, b);
-#else
-  float r;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-#endif
-}
-__device__ __forceinline__ float jmax(float a, float b) {
-#ifdef K1_ONE_PIXEL_PER_THREAD
-  return (a != a || b != b) ? a + b : fmaxf(a, b);
-#else
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-#endif
-}
-
-__device__ __forceinline__ V3 xform_point(const float* m, V3 p) {
-  return v3(m[0] * p.x + m[1] * p.y + m[2] * p.z + m[3],
-            m[4] * p.x + m[5] * p.y + m[6] * p.z + m[7],
-            m[8] * p.x + m[9] * p.y + m[10] * p.z + m[11]);
-}
-__device__ __forceinline__ V3 xform_dir(const float* m, V3 d) {
-  return v3(m[0] * d.x + m[1] * d.y + m[2] * d.z,
-            m[4] * d.x + m[5] * d.y + m[6] * d.z,
-            m[8] * d.x + m[9] * d.y + m[10] * d.z);
-}
 
 // ---------------------------------------------------------------- RNG --
 __device__ __forceinline__ uint32_t utilhash(uint32_t a) {
@@ -195,70 +133,7 @@ __device__ __forceinline__ void draw2(uint32_t iter, uint32_t index, uint32_t de
 }
 
 // ------------------------------------------------------- intersection --
-// Unit cube slab test (ops/intersect.py:box_intersect_v): t, the world
-// point and the object-space normal.
-__device__ __forceinline__ float box_test(const float* M, const float* inv, V3 o, V3 d,
-                                          V3* point, V3* n_obj) {
-  V3 qo = xform_point(inv, o);
-  V3 qd = normalized(xform_dir(inv, d));
-  float qos[3] = {qo.x, qo.y, qo.z};
-  float qds[3] = {qd.x, qd.y, qd.z};
-  float ta[3], tb[3], sg[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    float t1 = (-0.5f - qos[a]) / qds[a];
-    float t2 = (0.5f - qos[a]) / qds[a];
-    float lo = jmin(t1, t2);
-    tb[a] = jmax(t1, t2);
-    sg[a] = t2 < t1 ? 1.0f : -1.0f;
-    ta[a] = lo > 0.0f ? lo : -kBig;
-  }
-  float tmin = jmax(jmax(ta[0], ta[1]), ta[2]);
-  float tmax = jmin(jmin(tb[0], tb[1]), tb[2]);
-  bool a0 = ta[0] >= tmin;
-  bool a1 = !a0 && (ta[1] >= tmin);
-  bool a2 = !(a0 || a1);
-  bool b0 = tb[0] <= tmax;
-  bool b1 = !b0 && (tb[1] <= tmax);
-  bool b2 = !(b0 || b1);
-  bool hit = (tmax >= tmin) && (tmax > 0.0f);
-  bool inside = tmin <= 0.0f;
-  float t_obj = inside ? tmax : tmin;
-  *n_obj = inside ? v3(b0 ? sg[0] : 0.0f, b1 ? sg[1] : 0.0f, b2 ? sg[2] : 0.0f)
-                  : v3(a0 ? sg[0] : 0.0f, a1 ? sg[1] : 0.0f, a2 ? sg[2] : 0.0f);
-  V3 obj_point = add(qo, scale(qd, t_obj - kEpsPoint));
-  *point = xform_point(M, obj_point);
-  return hit ? norm(sub(o, *point)) : -1.0f;
-}
-
-// Radius-0.5 sphere (ops/intersect.py:sphere_intersect_v): t, the world
-// point, the object-space point and whether both roots are positive.
-__device__ __forceinline__ float sphere_test(const float* M, const float* inv, V3 o, V3 d,
-                                             V3* point, V3* obj_point, bool* both_pos) {
-  V3 ro = xform_point(inv, o);
-  V3 rd = normalized(xform_dir(inv, d));
-  float v_dot_d = dot(ro, rd);
-  float radicand = v_dot_d * v_dot_d - (dot(ro, ro) - 0.25f);
-  float sq = sqrtf(jmax(radicand, 0.0f));
-  float t1 = -v_dot_d + sq;
-  float t2 = -v_dot_d - sq;
-  bool both_neg = (t1 < 0.0f) && (t2 < 0.0f);
-  *both_pos = (t1 > 0.0f) && (t2 > 0.0f);
-  float t_obj = *both_pos ? jmin(t1, t2) : jmax(t1, t2);
-  bool hit = (radicand >= 0.0f) && !both_neg;
-  *obj_point = add(ro, scale(rd, t_obj - kEpsPoint));
-  *point = xform_point(M, *obj_point);
-  return hit ? norm(sub(o, *point)) : -1.0f;
-}
-
-// World-space normal of a geom hit from what its test kept: a box's
-// object-space normal through the transform, a sphere's object-space point
-// through the inverse transpose, flipped where the ray starts inside.
-__device__ __forceinline__ V3 geom_normal(const float* row, bool cube, V3 q, bool both_pos) {
-  if (cube) return normalized(xform_dir(row, q));
-  V3 n = normalized(xform_dir(row + 32, q));
-  return both_pos ? n : neg(n);
-}
+// The geom tests (box_test, sphere_test, geom_normal) are in geom_common.cuh.
 
 // Slab AABB gate (ops/intersect.py:ray_aabb_intersect_v).
 __device__ bool aabb_test(V3 o, V3 d, const float* lb, const float* ub) {

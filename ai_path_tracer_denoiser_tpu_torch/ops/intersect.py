@@ -5,7 +5,11 @@ quadratic :106-148, glm one-sided Moller-Trumbore :159-172, ray/AABB slab
 :175-200) as structure-of-arrays tensor math: every function evaluates a
 whole ray batch, running minima pick the winner.  This is the plain
 PyTorch version of the megakernel's intersection stage
-(csrc/render_megakernel.cu), written in the same operation order.
+(csrc/render_megakernel.cu), written in the same operation order.  The
+wavefront's analytic-geom query has a kernel of its own, K10
+(csrc/geom_intersect.cu, ``intersect_geoms_kernel``), which
+``intersect_geoms_v`` launches for rays on the card where no gradient has to
+pass (``geoms_route``); ``intersect_geoms_plain`` is its plain version.
 
 Reference quirks kept on purpose (JAX ops/intersect.py:22-30):
   * the triangle test returns t with no epsilon backoff
@@ -17,14 +21,16 @@ is fixed, as in the JAX package).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from ..scene.structs import CUBE, Geoms, MeshData
-from ..utils.timers import host_read, span
+from ..utils.cuda_build import CudaKernel, check
+from ..utils.timers import count, host_read, span
 from .vec3 import Vec3, where as vwhere, xform_dir, xform_point
 
 _EPS_POINT = 1e-4       # getPointOnRay backoff (intersections.h:27-29)
@@ -115,9 +121,94 @@ def _matrix_entries(m: torch.Tensor):
     return [[row.unbind() for row in g.unbind()] for g in m.unbind()]
 
 
+def _declare_geoms(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.aptd_geom_intersect.restype = i
+    lib.aptd_geom_intersect.argtypes = [p] * 6 + [i] + [p] * 5 + [i] + [p] * 4
+
+
+# K10: the analytic-geom closest hit in one launch (csrc/geom_intersect.cu,
+# its design and bound at the top of the source).
+GEOM_KERNEL = CudaKernel("geom_intersect", "geom_intersect.cu", extra_flags=("-fmad=false",),
+                         declare=_declare_geoms, headers=("geom_common.cuh",))
+
+
+def geoms_route(device, grad_enabled: bool, requires_grad: Sequence[bool]) -> str:
+    """Which version ``intersect_geoms_v`` runs for rays on ``device``:
+    "kernel" (K10) on a CUDA device unless a gradient has to reach the
+    geoms' matrices or the rays (grad mode on and any of ``requires_grad``
+    set: the kernel has no backward pass), else "plain"."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return "plain" if grad_enabled and any(requires_grad) else "kernel"
+
+
 def intersect_geoms_v(geoms: Geoms, o: Vec3, d: Vec3):
     """All rays vs all analytic geoms; min-t with first-geom tie-break
     (computeIntersections' running ``t_min > t`` loop, pathtrace.cu:230-254).
+
+    Returns (t, point, normal, outside, material id) planes: t = +inf, zero
+    vectors, False and -1 where no geom is hit.  ``geoms_route`` picks the
+    version: K10 (``intersect_geoms_kernel``) or the plain one
+    (``intersect_geoms_plain``, also the CPU's); each call is counted as
+    ``geoms.kernel`` or ``geoms.plain``."""
+    route = geoms_route(o.x.device, torch.is_grad_enabled(),
+                        [t.requires_grad for t in (geoms.transform, geoms.inverse_transform,
+                                                   geoms.inv_transpose, *o, *d)])
+    count("geoms." + route)
+    if route == "kernel":
+        return intersect_geoms_kernel(geoms, o, d)
+    return intersect_geoms_plain(geoms, o, d)
+
+
+def intersect_geoms_kernel(geoms: Geoms, o: Vec3, d: Vec3):
+    """``intersect_geoms_plain``'s outputs from one launch of K10 on the
+    current stream, bit for bit.  The six ray planes share one shape; the
+    geoms' matrices, types and material ids are read on the card as they
+    are.  Raises on what the kernel does not take (CPU tensors included)."""
+    dev = o.x.device
+    if dev.type != "cuda":
+        raise ValueError(f"K10 runs on a CUDA device, got rays on {dev}")
+    shape = o.x.shape
+    planes = [c.contiguous() for c in (*o, *d)]
+    for c in planes:
+        if c.device != dev or c.dtype != torch.float32 or c.shape != shape:
+            raise ValueError(f"the ray planes must be float32 tensors of one shape on "
+                             f"{dev}, got {c.dtype} {tuple(c.shape)} on {c.device}")
+    g = geoms.count
+    mats = [m.contiguous() for m in (geoms.transform, geoms.inverse_transform,
+                                     geoms.inv_transpose)]
+    ids = [t.contiguous() for t in (geoms.type, geoms.material_id)]
+    for name, t, want, dtype in (("matrices", mats, (g, 4, 4), torch.float32),
+                                 ("types and material ids", ids, (g,), torch.int32)):
+        for x in t:
+            if x.device != dev or x.dtype != dtype or tuple(x.shape) != want:
+                raise ValueError(f"the geoms' {name} must be {dtype} {want} on {dev}, got "
+                                 f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    n = o.x.numel()
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rays overflow the kernel's int32 index")
+    out = torch.empty((7, n), dtype=torch.float32, device=dev)
+    outside = torch.empty((n,), dtype=torch.bool, device=dev)
+    mat = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n:
+        lib = GEOM_KERNEL.lib()
+        with torch.cuda.device(dev):
+            rc = lib.aptd_geom_intersect(
+                *(c.data_ptr() for c in planes), n, *(m.data_ptr() for m in mats),
+                *(t.data_ptr() for t in ids), g, out.data_ptr(), outside.data_ptr(),
+                mat.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        check(rc, "geom intersect kernel")
+        GEOM_KERNEL.launches += 1
+    out = out.view(7, *shape)
+    return (out[0], Vec3(out[1], out[2], out[3]), Vec3(out[4], out[5], out[6]),
+            outside.view(shape), mat.view(shape))
+
+
+def intersect_geoms_plain(geoms: Geoms, o: Vec3, d: Vec3):
+    """``intersect_geoms_v``'s plain version: all rays vs all analytic geoms,
+    min-t with first-geom tie-break (computeIntersections' running ``t_min >
+    t`` loop, pathtrace.cu:230-254), one tensor expression at a time.
 
     The matrices enter as tensors (a differentiable render of moved geoms,
     render/edge_grad.py, takes their gradient); the types and material ids

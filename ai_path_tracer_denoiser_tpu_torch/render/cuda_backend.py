@@ -70,9 +70,10 @@ def kernel_build(witness: bool = False) -> CudaKernel:
     if witness:
         return CudaKernel("render_megakernel_witness", "render_megakernel.cu",
                           extra_flags=("-fmad=false", "-DK1_ONE_PIXEL_PER_THREAD"),
-                          declare=_declare)
+                          declare=_declare, headers=("geom_common.cuh",))
     return CudaKernel("render_megakernel", "render_megakernel.cu",
-                      extra_flags=("-fmad=false",), declare=_declare)
+                      extra_flags=("-fmad=false",), declare=_declare,
+                      headers=("geom_common.cuh",))
 
 
 KERNEL = kernel_build()
@@ -337,6 +338,17 @@ def render_work(scene: Scene, n_pixels: int, niter: int, segments: int):
         scene.geoms.count, scene.materials.count, scene.mesh.num_faces)
     ops = segments * per_seg + n_pixels * niter * OPS_RAYGEN
     return n_bytes, ops
+
+
+def geoms_work(n_rays: int, types: Sequence[int]):
+    """(bytes, operations) of one call of the wavefront's geom kernel K10
+    (csrc/geom_intersect.cu) over ``n_rays`` rays and geoms of ``types``:
+    six float32 ray planes read, seven float32 planes, a bool plane and an
+    int32 plane written; every geom tested on every ray (``OPS_BOX``,
+    ``OPS_SPHERE``) and the winner's normal made once (``OPS_NORMAL``)."""
+    per_ray = (sum(OPS_BOX if t == CUBE else OPS_SPHERE for t in types)
+               + (OPS_NORMAL if len(types) else 0))
+    return n_rays * (6 * 4 + 7 * 4 + 1 + 4), n_rays * per_ray
 
 
 def path_segments(scene: Scene, options: RenderOptions, num_iterations: int,

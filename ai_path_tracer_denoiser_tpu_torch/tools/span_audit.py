@@ -144,15 +144,16 @@ def audit_frames(emit, device="cuda", res=800, widths=WIDTHS):
               "denoise_warnings": in_port(d_where),
               "denoise_counted": sum(d_counted.values()),
               "denoise_warnings_at": dict(d_where),
-              "binned_calls": {k: v for k, v in timers.records("render.frame")[-1]["counts"]
-                               .items() if k.startswith("binned.")}})
+              **{f"{kind}_calls": {k: v for k, v in timers.records("render.frame")[-1]["counts"]
+                                   .items() if k.startswith(kind + ".")}
+                 for kind in ("binned", "geoms")}})
 
 
 def audit_orbit(emit, device="cuda", res=800, steps=range(0, 360, 12)):
     """The statue frame along the benchmark's orbit (0.01 rad a frame from
-    the scene's camera): reads counted, bounces traced (one read of the
-    geoms' materials each; a frame stops once every path has ended) and
-    host ms, at every 12th frame."""
+    the scene's camera): reads counted, bounces traced (one call of the
+    analytic-geom query each, ``geoms.kernel`` or ``geoms.plain``; a frame
+    stops once every path has ended) and host ms, at every 12th frame."""
     opts = RenderOptions(rng="parity", backend="auto")
     scene = frame_scene("cornell_mesh_statue.txt", device, res)
     phi, theta, zoom = orbit_params_from_camera(scene.camera)
@@ -163,7 +164,8 @@ def audit_orbit(emit, device="cuda", res=800, steps=range(0, 360, 12)):
         rec = timers.records("render.frame")[-1]
         out.append({"frame": k, "reads": sum(v for n, v in rec["counts"].items()
                                              if n.startswith("sync.")),
-                    "bounces": rec["counts"]["sync.geom_materials"],
+                    "bounces": (rec["counts"].get("geoms.kernel", 0)
+                                + rec["counts"].get("geoms.plain", 0)),
                     "host_ms": rec["spans"]["render.frame"] * 1e-6})
     emit({"phase": "orbit", "scene": "cornell_mesh_statue.txt", "degrees_per_frame":
           math.degrees(0.01), "frames": out})

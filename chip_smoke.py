@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the port's ten CUDA kernels from csrc/, holds each against its
+Builds the port's eleven CUDA kernels from csrc/, holds each against its
 plain PyTorch version on the card, and drives the main paths through the
-CLI's entry point.  The render megakernel is also held bit for bit to its
+CLI's entry point.  The wavefront's geom kernel K10 is held bit for bit
+to its plain version on every analytic-geom query of an 800x800 statue
+frame and timed there, with the frame itself through K10 and through the
+plain version in turns.  The render megakernel is also held bit for bit to its
 one-pixel-per-thread witness build (the first version's schedule and
 arithmetic) on six inputs, and timed as events around its wrapper's calls
 and as device time of the launch alone, on the interactive frame and on a
@@ -60,8 +63,9 @@ steps hid, one shard bit for bit `fit_device_data`); the denoiser with
 edge-gradient slice (`render/edge_grad.py`): every gradient function at
 the JAX defaults (512 edge samples, 128 iterations) on cornell at 800x800
 (the sphere, the ceiling light, the camera) and on the icosahedron scene,
-the blob's boundary term, with no kernel launch (these renders keep the
-plain wavefront under autograd), the interior terms' peak memory, the
+the blob's boundary term, with no kernel launch but K10's (these renders
+keep the plain wavefront under autograd; its geom queries where no
+gradient passes take K10), the interior terms' peak memory, the
 shoelace area oracle, the batched `mean_radiance` bit for bit its loop,
 the card's gradients against the CPU's on the 64x64 edge scenes, and a
 full-width backward that is not zero (the 800x800 edge box shaded by
@@ -337,6 +341,113 @@ def free_port():
         return sock.getsockname()[1]
 
 
+def phase_geom_kernel(smi, dev):
+    """K10 (csrc/geom_intersect.cu) against its plain version on every
+    analytic-geom query of one 800x800 statue frame (frame 0 of the orbit,
+    all 640,000 rays at every bounce, dead lanes included): all five
+    outputs bit for bit, its launches per frame, its time per call (events
+    around calls back to back, and device time from a CUDA graph replay)
+    beside its bound and the plain version's time; then the frame itself
+    through K10 and with the plain version forced, in turns, G-buffers
+    bit for bit.  Returns the kernel's row of the ``kernels`` summary."""
+    import dataclasses
+    import torch
+    from ai_path_tracer_denoiser_tpu_torch.config import RenderOptions
+    from ai_path_tracer_denoiser_tpu_torch.ops import intersect as tintersect
+    from ai_path_tracer_denoiser_tpu_torch.render import cuda_backend, render_gbuffer_frame
+    from ai_path_tracer_denoiser_tpu_torch.scene import (load_scene, orbit_camera,
+                                                         orbit_params_from_camera)
+    from ai_path_tracer_denoiser_tpu_torch.utils.cuda_build import swapped
+    from ai_path_tracer_denoiser_tpu_torch.utils.timers import totals
+    kernel = tintersect.GEOM_KERNEL
+    sc = load_scene(MESH_SCENES["statue"], device=dev)
+    ph, th, zm = orbit_params_from_camera(sc.camera)
+    sc = dataclasses.replace(sc, camera=orbit_camera(sc.camera, ph, th, zm))
+    opts = RenderOptions()
+    render_gbuffer_frame(sc, opts)                              # builds, warms
+    torch.cuda.synchronize()
+    calls = []
+    launches, counted = kernel.launches, totals().get("geoms.kernel", 0)
+    with recording(tintersect, "intersect_geoms_v", calls):
+        _, gbuf_k, _ = render_gbuffer_frame(sc, opts)
+    torch.cuda.synchronize()
+    frame_launches = kernel.launches - launches
+    require(frame_launches == len(calls) == totals().get("geoms.kernel", 0) - counted,
+            "K10: one launch and one geoms.kernel count per query of the frame")
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    def flat(r):
+        return [r[0], *r[1], *r[2], r[3], r[4]]
+
+    checks, err = [], 0.0
+    for k, (geoms, o, d) in enumerate(calls):
+        got = flat(tintersect.intersect_geoms_kernel(geoms, o, d))
+        want = flat(tintersect.intersect_geoms_plain(geoms, o, d))
+        equal = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
+        err = max(err, max_abs_diff([a.float() for a in got], [b.float() for b in want]))
+        checks.append({"call": k, "rays": o.x.numel(), "hits": int(torch.isfinite(want[0]).sum()),
+                       "bits_equal": equal})
+        require(equal, f"K10 equals its plain version bit for bit on call {k}")
+    emit({"phase": "geom_check", "scene": "statue", "res": list(sc.camera.resolution),
+          "geoms": sc.geoms.count, "calls": checks, "max_abs_err": err,
+          "launches_per_frame": frame_launches})
+
+    geoms, o, d = calls[0]
+    n = o.x.numel()
+    run = lambda: tintersect.intersect_geoms_kernel(geoms, o, d)      # noqa: E731
+    plain = lambda: tintersect.intersect_geoms_plain(geoms, o, d)     # noqa: E731
+    events = time_ms(run, 50)
+    device = graph_ms(run, 50)
+    plain_ms = time_ms(plain, 5)
+    frame_events = sum(time_ms(lambda c=c: tintersect.intersect_geoms_kernel(*c), 10)
+                       for c in calls)
+    frame_device = sum(graph_ms(lambda c=c: tintersect.intersect_geoms_kernel(*c), 20)
+                       for c in calls)
+    frame_plain = sum(time_ms(lambda c=c: tintersect.intersect_geoms_plain(*c), 3)
+                      for c in calls)
+    n_bytes, ops = cuda_backend.geoms_work(n, sc.geoms.type_tuple)
+    bound, by = bound_ms(n_bytes, ops, FP32_FLOPS)
+    frame_bound = sum(bound_ms(*cuda_backend.geoms_work(c[1].x.numel(), sc.geoms.type_tuple),
+                               FP32_FLOPS)[0] for c in calls)
+
+    def frame_wall_ms(route):
+        rule = tintersect.geoms_route if route == "kernel" else (lambda *a: "plain")
+        with swapped(tintersect, "geoms_route", rule):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = render_gbuffer_frame(sc, opts)[1]
+            torch.cuda.synchronize()
+        return out, (time.time() - t0) * 1e3
+
+    walls = {"kernel": [], "plain": []}
+    gbuf_p = None
+    for route in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
+        out, ms = frame_wall_ms(route)
+        walls[route].append(ms)
+        if route == "plain":
+            gbuf_p = out
+    require(torch.equal(bits(gbuf_k), bits(gbuf_p)),
+            "the statue frame's G-buffer is the same on both routes")
+    emit({"phase": "geom_timing", "card": smi, "rays": n, "geoms": sc.geoms.count,
+          "events_ms": events, "device_ms": device, "plain_ms": plain_ms,
+          "bound_ms": bound, "bound_by": by, "bound_share": bound / device,
+          "frame_events_ms": frame_events, "frame_device_ms": frame_device,
+          "frame_bound_ms": frame_bound, "frame_plain_ms": frame_plain,
+          "frame_calls": len(calls), "frame_wall_ms": walls,
+          "note": "events/device/plain: the frame's first call (all rays); frame_*: "
+                  "every call of the frame summed; frame_wall_ms: the whole statue "
+                  "frame (render_gbuffer_frame, the card drained) by route, in turns"})
+    return {"name": "geom_intersect", "route": "cuda",
+            "source": "ai_path_tracer_denoiser_tpu_torch/csrc/geom_intersect.cu",
+            "replaces": None, "launches": frame_launches, "max_abs_err": err,
+            "ms": frame_events, "device_ms": frame_device, "per_call_ms": events,
+            "per_call_device_ms": device, "plain_ms": frame_plain,
+            "plain_per_call_ms": plain_ms, "bound_ms": frame_bound, "bound_by": by,
+            "per_call_bound_ms": bound, "library_ms": None}
+
+
 def phase_serve_path(cli, kernels, smi, dev):
     """``interactive`` on cornell at 800x800 with the shipped model, 8
     frames, with ``--serve`` and a viewer on loopback and without; then
@@ -586,7 +697,10 @@ def phase_variants_stream_path(cli, kernels, smi, dev):
     datagen_s = time.time() - t0
     datagen_launches = nonzero_launches(kernels)
     want_k1 = 2 * VARIANT_FRAMES * sum(eligible)
-    require(datagen_launches == ({"render_megakernel": want_k1} if want_k1 else {}),
+    # the plain wavefront of an ineligible variant queries its geoms through K10
+    require({k: v for k, v in datagen_launches.items() if k != "geom_intersect"}
+            == ({"render_megakernel": want_k1} if want_k1 else {})
+            and ("geom_intersect" in datagen_launches) == (not all(eligible)),
             f"datagen --variants launches {datagen_launches}, scenes on K1 {eligible}")
     n_scenes = 1 + VARIANTS
     stems = [f"{s:03d}_0_0_{f:04d}.npy" for s in range(n_scenes) for f in range(VARIANT_FRAMES)]
@@ -851,7 +965,7 @@ def phase_parallel_path(cli, kernels, smi, dev, tr):
     require(os.path.exists(os.path.join(dp_dir, "models", "model_final.npz")),
             "data-parallel final checkpoint")
     require(entry["render_sharded cornell"] == {"render_megakernel": 1}
-            and set(entry["render_sharded blob"]) == {"mesh_bvh_v2p"}
+            and set(entry["render_sharded blob"]) == {"mesh_bvh_v2p", "geom_intersect"}
             and entry["denoise_frame_spatial"] == {"conv3x3_act": 28},
             f"parallel path launches {entry}")
     for need in ("render_megakernel", "conv3x3_act", "mesh_bvh_v2p"):
@@ -900,7 +1014,7 @@ def phase_parallel_path(cli, kernels, smi, dev, tr):
     require(all(render_equal.values()), f"render_sharded bit for bit render: {render_equal}")
     require(all(tiles_equal.values()), f"{PAR_TILES} tiles bit for bit the frame: {tiles_equal}")
     require(tile_launches["cornell"] == {"render_megakernel": PAR_TILES}
-            and set(tile_launches["blob"]) == {"mesh_bvh_v2p"},
+            and set(tile_launches["blob"]) == {"mesh_bvh_v2p", "geom_intersect"},
             f"per-tile launches {tile_launches}")
 
     # ---- the halo conv against the whole-frame conv, through K2 ----
@@ -1318,7 +1432,7 @@ EDGE_SPHERE, EDGE_LIGHT = 6, 0  # cornell_box.txt: the sphere; the ceiling light
 def phase_edge_grad_path(kernels, smi, dev):
     """The edge-sampled geometry gradients (render/edge_grad.py) at the JAX
     defaults (n_edge 512, spp 128) on cornell_box.txt at 800x800, depth 8,
-    and on cornell_mesh_icosahedron.txt: no kernel launches, finite (3,)
+    and on cornell_mesh_icosahedron.txt: no kernel launches but K10's, finite (3,)
     results on the card, each call three times (median and spread, and
     the host's garbage-collection pauses within each run); one
     profiled sphere gradient (its kernel launches and the card's busy
@@ -1451,8 +1565,11 @@ def phase_edge_grad_path(kernels, smi, dev):
             interior_runs[f"{name}:{cache}"] = {
                 "ms": spread([r["ms"] for r in rows]), "runs": rows}
     gc.callbacks.remove(gc_clock)
-    launches.update(nonzero_launches(kernels))
-    require(not launches, f"edge gradients launched kernels: {launches}")
+    for k, v in nonzero_launches(kernels).items():
+        launches[k] = launches.get(k, 0) + v
+    # radiance estimates under no_grad, and queries whose rays and geoms carry
+    # no gradient, take K10 (ops/intersect.py:geoms_route); nothing else launches
+    require(set(launches) <= {"geom_intersect"}, f"edge gradients launched kernels: {launches}")
     for name, gs in grads.items():
         for g in gs:
             require(isinstance(g, torch.Tensor) and g.shape == (3,) and g.device.type == "cuda"
@@ -1596,6 +1713,7 @@ def main():
     from ai_path_tracer_denoiser_tpu_torch.scene import (
         derive_camera, load_scene, orbit_camera, orbit_params_from_camera)
     from ai_path_tracer_denoiser_tpu_torch.ops import bvh as mesh_bvh
+    from ai_path_tracer_denoiser_tpu_torch.ops import intersect as tintersect
     from ai_path_tracer_denoiser_tpu_torch.ops.vec3 import Vec3
     from ai_path_tracer_denoiser_tpu_torch.tools import k1_sweep, k4_sweep, mm_feasibility
     from ai_path_tracer_denoiser_tpu_torch.utils.cuda_build import build_all
@@ -1615,14 +1733,14 @@ def main():
     emit({"phase": "device", "kind": kind, "count": count, "card": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    # ---- 2. build all ten kernels (one nvcc per source, in parallel) ----
+    # ---- 2. build all eleven kernels (one nvcc per source, in parallel) ----
     kernels = (cuda_backend.KERNEL, conv_kernel.KERNEL, conv_kernel.ROWS_KERNEL,
                mesh_kernel_v2p.KERNEL, mesh_binned.PHASE1_KERNEL,
                mesh_binned.PAIR_KERNEL, mesh_kernel.KERNEL, mesh_kernel_v3.KERNEL,
-               mm_feasibility.VPU_KERNEL, mm_feasibility.MMA_KERNEL)
-    require(len(kernels) == 10, "ten kernels")
+               mm_feasibility.VPU_KERNEL, mm_feasibility.MMA_KERNEL, tintersect.GEOM_KERNEL)
+    require(len(kernels) == 11, "eleven kernels")
     # K4 at the witness thresholds (phase 10e) and K1's one-pixel-per-thread
-    # witness (phase 3), not counted among the ten
+    # witness (phase 3), not counted among the eleven
     k4_witnesses = {k: mesh_kernel_v2p.kernel_build(k, f"mesh_bvh_v2p_kthr{k}")
                     for k in K4_WITNESSES}
     t0 = time.time()
@@ -2316,6 +2434,9 @@ def main():
                   "the card still working"})
     del X, Y, final, state0
 
+    # ---- 6b. the wavefront's geom kernel K10 on a statue frame's queries ----
+    geom_row = phase_geom_kernel(smi, dev)
+
     # ---- 7. mesh kernels vs their plain versions, on a real frame's rays ----
     # One 800x800 frame of each mesh scene is rendered with each BVH
     # intersection while the kernels' wrappers record their arguments; the
@@ -2739,7 +2860,8 @@ def main():
     # ---- 10c. the traversal experiment path: interactive with v2 and v3 ----
     # `interactive` on the blob with each traversal, carry-sorted and not;
     # counts set to 0 just before each run and read just after.  Every frame
-    # takes 8 intersection calls (depth 8), all through the chosen kernel.
+    # takes 8 intersection calls (depth 8), all through the chosen kernel, and
+    # queries its geoms through K10 at each.
     impl_kernel = {"v2p": "mesh_bvh_v2p", "v2": "mesh_bvh_v2", "v3": "mesh_bvh_v3"}
     impl_frames = {}
     impl_counts = {}
@@ -2756,7 +2878,8 @@ def main():
                       for st_ in stems]
             impl_frames[impl, sort_flag] = frames
             impl_counts[impl, sort_flag] = counts
-            expect = {impl_kernel[impl]: 8 * IMPL_FRAMES, "conv3x3_act": 28 * IMPL_FRAMES}
+            expect = {impl_kernel[impl]: 8 * IMPL_FRAMES, "conv3x3_act": 28 * IMPL_FRAMES,
+                      "geom_intersect": 8 * IMPL_FRAMES}
             require({k: v for k, v in counts.items() if v} == expect,
                     f"{impl} {sort_flag}: launches {counts}, expected only {expect}")
             require(all(r_["finite"] for r_ in recs), f"{impl} {sort_flag}: frames finite")
@@ -2790,7 +2913,7 @@ def main():
             else:
                 routed = impl if impl != "auto" else ("v2p" if scene_name == "blob" else "binned")
                 expect = ({"mesh_binned_phase1", "mesh_binned_pair"} if routed == "binned"
-                          else {impl_kernel[routed]})
+                          else {impl_kernel[routed]}) | {"geom_intersect"}
                 # the binned pipeline's fallback, if a bounce takes it, is the per-ray kernel
                 allowed = expect | ({"mesh_bvh_v2p"} if routed == "binned" else set())
                 require(expect <= set(counts) <= allowed,
@@ -2807,7 +2930,8 @@ def main():
                                     num_iterations=3)
     img_mb, g_mb, st_mb = render(base, RenderOptions(motion_blur=True, sort_material=True),
                                  num_iterations=8)
-    require(sum(launch_counts().values()) == 0, "the three options render through the plain wavefront")
+    require({k for k, v in launch_counts().items() if v} == {"geom_intersect"},
+            "the three options render through the plain wavefront (its geoms through K10)")
     require(torch.equal(g_opt, g_plain) and st_opt.cache is not None,
             "sort_material + cache_first_bounce changed the render")
     require(bool(torch.isfinite(g_mb).all()) and st_mb.geoms is not None
@@ -3165,7 +3289,8 @@ def main():
          "max_abs_err_3xtf32": mma["3xtf32"]["max_abs_err"],
          "splits_3xtf32": probe_splits["3xtf32"]},
     ]}
-    require(len(summary["kernels"]) == 10, "ten kernels in the summary")
+    summary["kernels"].append(geom_row)
+    require(len(summary["kernels"]) == 11, "eleven kernels in the summary")
     for row in summary["kernels"]:
         row["parallel_path_launches"] = par_launches[row["name"]]
         row["campaign_path_launches"] = campaign_launches.get(row["name"], 0)

@@ -192,7 +192,8 @@ def test_analytic_frame_reads_only_the_geom_materials():
         scene.camera.up.numpy()))
     render_gbuffer_frame(scene, RenderOptions(backend="xla", stream_compaction=False))
     (rec,) = timers.records("render.frame")
-    assert rec["counts"] == {"sync.geom_materials": 2, "sync.live_count": 1, **_rng_copies(2)}
+    assert rec["counts"] == {"sync.geom_materials": 2, "sync.live_count": 1, "geoms.plain": 2,
+                             **_rng_copies(2)}
 
 
 def test_train_step_records_its_phases():
