@@ -3,8 +3,8 @@
   render       accumulate N spp and save a PNG (and an HDR, the G-buffer)
   interactive  headless frame loop: per frame orbit the camera, trace 1 spp
                into the G-buffer, denoise with the recurrent network
-               (hidden state carried), write the frame (and stream it live
-               with --serve)
+               (hidden state carried; --denoiser kpcn: the kernel-predicting
+               network), write the frame (and stream it live with --serve)
   datagen      render (1-spp G-buffer, high-spp ground truth) training pairs,
                of the scene and of randomized variants of it
   randomize    write randomized scene variants
@@ -37,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from ..config import ModelOptions, RenderOptions
+from ..config import KPCNOptions, ModelOptions, RenderOptions
 from ..utils.device import resolve_device
 
 
@@ -126,35 +126,14 @@ def cmd_render(args):
     return written
 
 
-def cmd_interactive(args):
-    """Headless interactive loop (runCuda, main.cpp:120-168).
-
-    Per frame: the camera orbits (or follows ``--serve``'s viewer input),
-    a 1-spp render fills the G-buffer, the denoiser turns it into the
-    frame.  Frames are emitted one behind: frame i-1 is fetched, written
-    and pushed to the preview only after frame i's render and denoise are
-    dispatched, so the copy back and the host's PNG encode run while the
-    card works (on the card each frame's copy goes into one of two sets of
-    page-locked buffers, ordered by an event).
-
-    Returns one record per frame: its index, PNG path, whether the
-    denoised frame is finite, the render, denoise and total milliseconds
-    (CUDA events on the card) and ``emitted_s``, the host clock
-    (``time.perf_counter``) when it was written.
-    """
+def _rdae_denoiser(args, device, h, w):
+    """``interactive``'s recurrent denoiser: (denoise(gbuffer, hidden) ->
+    (frame, hidden), the hidden state at zero)."""
     from ..models import (apply_frame, apply_frame_fast_padded,
                           init_autoencoder, init_hidden, load_model,
                           model_options_from_meta, padded_resolution,
                           prepare_inference)
     from ..models.inference import edge_pad
-    from ..render import render, render_gbuffer_frame
-    from ..scene.camera import orbit_camera, orbit_params_from_camera
-    from ..utils.imageio import save_png_scaled
-
-    device = resolve_device(args.device)
-    scene = _load_scene_scaled(args.scene, device, args.res, args.res_wh)
-    options = _render_options(args)
-    w, h = scene.camera.resolution
     model_path = args.model or _default_model_path()
     if model_path and os.path.exists(model_path):
         if not args.model:
@@ -190,6 +169,52 @@ def cmd_interactive(args):
             return apply_frame_fast_padded(
                 folded, gbuffer.permute(1, 2, 0)[None], hd, mopts,
                 conv_impl=args.conv_impl)
+    return denoise, hidden
+
+
+def _kpcn_denoiser(args, device):
+    """``interactive``'s kernel-predicting denoiser (models/kpcn.py): no
+    hidden state; weights drawn from seed 0, as no trained KPCN exists."""
+    from ..models import apply_kpcn_frame, init_kpcn
+    if args.model:
+        raise SystemExit("--model loads an RDAE checkpoint; --denoiser kpcn draws its "
+                         "weights from seed 0")
+    kopts = KPCNOptions()
+    params = init_kpcn(0, kopts, device)
+
+    def denoise(gbuffer, hd):
+        return apply_kpcn_frame(params, gbuffer, kopts), None
+    return denoise, None
+
+
+def cmd_interactive(args):
+    """Headless interactive loop (runCuda, main.cpp:120-168).
+
+    Per frame: the camera orbits (or follows ``--serve``'s viewer input),
+    a 1-spp render fills the G-buffer, the denoiser turns it into the
+    frame.  Frames are emitted one behind: frame i-1 is fetched, written
+    and pushed to the preview only after frame i's render and denoise are
+    dispatched, so the copy back and the host's PNG encode run while the
+    card works (on the card each frame's copy goes into one of two sets of
+    page-locked buffers, ordered by an event).
+
+    Returns one record per frame: its index, PNG path, whether the
+    denoised frame is finite, the render, denoise and total milliseconds
+    (CUDA events on the card) and ``emitted_s``, the host clock
+    (``time.perf_counter``) when it was written.
+    """
+    from ..render import render, render_gbuffer_frame
+    from ..scene.camera import orbit_camera, orbit_params_from_camera
+    from ..utils.imageio import save_png_scaled
+
+    device = resolve_device(args.device)
+    scene = _load_scene_scaled(args.scene, device, args.res, args.res_wh)
+    options = _render_options(args)
+    w, h = scene.camera.resolution
+    if args.denoiser == "kpcn":
+        denoise, hidden = _kpcn_denoiser(args, device)
+    else:
+        denoise, hidden = _rdae_denoiser(args, device, h, w)
     phi, theta, zoom = orbit_params_from_camera(scene.camera)
     os.makedirs(args.out_dir, exist_ok=True)
     server = None
@@ -609,6 +634,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="conv kernel of the deployment path: the tile "
                          "kernel (auto, pallas2) or the row-band kernel "
                          "(pallas)")
+    sp.add_argument("--denoiser", default="rdae", choices=("rdae", "kpcn"),
+                    help="the recurrent autoencoder (rdae, hidden state "
+                         "carried) or the kernel-predicting network of Bako "
+                         "et al. 2017 (kpcn: K11 convs, K12 apply; weights "
+                         "from seed 0)")
     sp.add_argument("--ground-truth", action="store_true",
                     help="accumulate the scene's full spp budget (or --spp) "
                          "per frame before denoising")

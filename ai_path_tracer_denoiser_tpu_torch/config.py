@@ -160,6 +160,27 @@ class ModelOptions:
         return ModelOptions(widths=(32, 48, 64, 80, 104))
 
 
+@dataclasses.dataclass(frozen=True)
+class KPCNOptions:
+    """The kernel-predicting denoiser (Bako et al. 2017, models/kpcn.py):
+    ``layers`` 5x5 convolutions with SAME zero padding, the first
+    ``layers`` - 1 ``width`` channels wide with a ReLU, the last
+    ``kernel``**2 wide, softmax-weighting the ``kernel`` x ``kernel`` window
+    of noisy radiance around each pixel.  All three are the paper's; the
+    5x5 taps and the 30 input channels are fixed (``models.kpcn.TAPS``,
+    ``models.kpcn.IN_CHANNELS``)."""
+
+    layers: int = 9
+    width: int = 100
+    kernel: int = 21
+
+    def __post_init__(self):
+        if self.kernel % 2 == 0 or not 1 <= self.kernel <= 21:
+            raise ValueError(f"kernel={self.kernel}: odd, 1..21")
+        if self.layers < 2:
+            raise ValueError(f"layers={self.layers}: at least 2")
+
+
 DEFAULT_RENDER = RenderOptions()
 DEFAULT_TRAIN = TrainOptions()
 DEFAULT_MODEL = ModelOptions()

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks of the two bfloat16 conv kernels, the tile
-// kernel (conv3x3_act.cu) and the row-band kernel (conv3x3_rows.cu):
+// Hopper (sm_90a) building blocks of the bfloat16 conv kernels, the tile
+// kernel (conv3x3_act.cu), the row-band kernel (conv3x3_rows.cu) and the
+// 5x5 tile kernel (conv5x5_act.cu):
 // 16-byte asynchronous copies into shared memory, the piece copy and re-lay
 // of a halo pixel's 16-channel chunk, ldmatrix, warpgroup matrix products
 // (wgmma) with A in registers and B in shared memory, and the epilogue.
@@ -146,25 +147,26 @@ __device__ __forceinline__ void wgmma_tap(float* d, const uint32_t (&a)[4], uint
     wgmma_bf16<NB % 4>(d + 4 * (NB - NB % 4), a, b_desc(wt + (NB - NB % 4) * 256));
 }
 
-// One chunk's weights for NB groups of 8 output channels: 9 taps x 16 x 8NB
-// of the packing of pack_weights_sm90 (wk = the chunk's first tap at the
-// block's first group; nb_total groups in all), copied to w_s in 16-byte
-// pieces by the block's threads.
-template <int NB>
+// One chunk's weights for NB groups of 8 output channels: TAPS taps (9 for
+// a 3x3 conv, 25 for a 5x5) x 16 x 8NB of the packing of pack_weights_sm90
+// (wk = the chunk's first tap at the block's first group; nb_total groups in
+// all), copied to w_s in 16-byte pieces by the block's threads.
+template <int NB, int TAPS = 9>
 __device__ __forceinline__ void copy_weights(uint32_t w_s, const __nv_bfloat16* wk, int nb_total,
                                              int tid, int nthreads) {
-  for (int i = tid; i < 9 * NB * 16; i += nthreads) {
+  for (int i = tid; i < TAPS * NB * 16; i += nthreads) {
     const int tap = i / (NB * 16), r = i - tap * (NB * 16);
     cp_async16(w_s + i * 16, wk + (size_t)tap * nb_total * 128 + r * 8, 16);
   }
 }
 
 // Pixel index (gy * W + gx) within its image of halo pixel hp of a halo
-// hw2 pixels wide whose first pixel sits at (y0 - 1, x0 - 1), or -1
-// outside the image.
+// hw2 pixels wide whose first pixel sits at (y0 - R, x0 - R) (R = 1 for a
+// 3x3 conv, 2 for a 5x5), or -1 outside the image.
+template <int R = 1>
 __device__ __forceinline__ int halo_pixel(int hp, int hw2, int x0, int y0, int H, int W) {
   const int hy = hp / hw2;
-  const int gy = y0 + hy - 1, gx = x0 + (hp - hy * hw2) - 1;
+  const int gy = y0 + hy - R, gx = x0 + (hp - hy * hw2) - R;
   return (gy < 0 || gy >= H || gx < 0 || gx >= W) ? -1 : gy * W + gx;
 }
 

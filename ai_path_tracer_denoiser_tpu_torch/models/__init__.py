@@ -11,3 +11,5 @@ from .inference import (  # noqa: F401
     padded_resolution,
     prepare_inference,
 )
+from .kpcn import (apply_kpcn_frame, init_kpcn, kernel_apply,  # noqa: F401
+                   kpcn_features, kpcn_logits)

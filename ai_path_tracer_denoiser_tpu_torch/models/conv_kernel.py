@@ -167,22 +167,23 @@ def conv_plan(n: int, h: int, w: int, co: int) -> ConvPlan:
 
 
 def pack_weights_sm90(w: torch.Tensor, n_cols: Optional[int] = None) -> torch.Tensor:
-    """(3, 3, C, Co) conv weights -> (ceil(C/16), 9, n_cols/8, 2, 8, 8).
+    """(k, k, C, Co) conv weights -> (ceil(C/16), k*k, n_cols/8, 2, 8, 8).
 
-    The bfloat16 tile kernel's B operand: for each 16-channel chunk k and
-    tap t = 3 dy + dx, the 16 x n_cols slice in core matrices of 8 output x
-    8 input channels, input channels contiguous:
-    packed[k, t, j, h, r, c] = w[dy, dx, 16k + 8h + c, 8j + r], zero past C
-    and past Co.  ``n_cols`` (a multiple of 8, default Co rounded up to 8)
+    The bfloat16 tile kernels' B operand (k = 3: csrc/conv3x3_act.cu; k =
+    5: csrc/conv5x5_act.cu): for each 16-channel chunk and tap t = k dy +
+    dx, the 16 x n_cols slice in core matrices of 8 output x 8 input
+    channels, input channels contiguous:
+    packed[kc, t, j, h, r, c] = w[dy, dx, 16kc + 8h + c, 8j + r], zero past
+    C and past Co.  ``n_cols`` (a multiple of 8, default Co rounded up to 8)
     is ``ConvPlan.n_cols``.
     """
-    _, _, c, co = w.shape
+    ks, _, c, co = w.shape
     n_cols = _cdiv(co, 8) * 8 if n_cols is None else n_cols
     if n_cols % 8 or n_cols < co:
         raise ValueError(f"n_cols={n_cols}: a multiple of 8, at least {co}")
     kc = _cdiv(c, 16)
     wp = F.pad(w, (0, n_cols - co, 0, 16 * kc - c))
-    wp = wp.reshape(9, kc, 2, 8, n_cols // 8, 8)             # t, k, h, c, j, r
+    wp = wp.reshape(ks * ks, kc, 2, 8, n_cols // 8, 8)       # t, k, h, c, j, r
     return wp.permute(1, 0, 4, 2, 5, 3).contiguous()
 
 
@@ -538,3 +539,118 @@ def conv_work(h: int, w: int, c: int, co: int, out_bytes: int = 2,
     n_bytes = (n * h * w * c * in_bytes + 9 * c * co * in_bytes + 3 * co * 4
                + n * h * w * co * out_bytes)
     return n_bytes, n * h * w * 9 * c * co
+
+
+# ---------------------------------------------------------------------------
+# The 5x5 tile kernel (K11, the kernel-predicting denoiser's convs)
+# ---------------------------------------------------------------------------
+
+def _declare5(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.aptd_conv5x5_act.restype = i
+    lib.aptd_conv5x5_act.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i,
+                                     i, i, i, i, p]
+
+
+KERNEL5 = CudaKernel("conv5x5_act", "conv5x5_act.cu", declare=_declare5,
+                     headers=("conv_sm90.cuh",))
+# Output-channel groups of 8 that the 5x5 kernel is built for, and its
+# shared memory: two stages of a halo (TH + 4) x (TW + 4) pixels at 48 bytes
+# and a chunk's 25 x 16 x 8 NB weights must fit in 227 KB
+BLOCK_GROUPS5 = (1, 2, 4, 8, 13, 14, 16)
+SMEM_MAX = 232448
+
+
+def conv5x5_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      relu: bool, out_dtype=None) -> torch.Tensor:
+    """K11's plain PyTorch version, in the order of ``conv3x3_act_plain``:
+    x (N, H, W, C), w (5, 5, C, Co); the 25 taps are (N*H*W, C) @ (C, Co)
+    float32 products summed in float32 (bfloat16 products are exact in
+    float32), then bias and ReLU (or none), rounded once to the output
+    dtype (default x's)."""
+    n, h, wd, c = x.shape
+    co = w.shape[-1]
+    xp = F.pad(x.to(torch.float32), (0, 0, 2, 2, 2, 2))
+    wf = w.to(torch.float32)
+    acc = None
+    for dy in range(5):
+        for dx in range(5):
+            part = xp[:, dy:dy + h, dx:dx + wd].reshape(n * h * wd, c) @ wf[dy, dx]
+            acc = part if acc is None else acc + part
+    y = _epilogue(acc.reshape(n, h, wd, co), b, 0.0 if relu else 1.0, None)
+    return y.to(_out_dtype(x, out_dtype))
+
+
+@functools.lru_cache(maxsize=256)
+def conv5_plan(n: int, h: int, w: int, co: int) -> ConvPlan:
+    """The launch of K11 for an (n, h, w, .) -> co call, by
+    ``conv_plan``'s rules with the 5x5 halo: two-warpgroup blocks of 128
+    pixels on images of 132 x 128 pixels or more, else 64; the tile shape
+    with the fewest tiles, then the smallest halo; each block as many
+    channel groups as fit its two stages (at most 16), dealt out to more
+    blocks where the tiles alone leave fewer than ``SMS``."""
+    nwg = 2 if h * w >= SMS * 128 else 1
+    tw, th = min(TILE_SHAPES[nwg], key=lambda t: (_cdiv(w, t[0]) * _cdiv(h, t[1]),
+                                                 (t[0] + 4) * (t[1] + 4)))
+    halo = (tw + 4) * (th + 4) * PIX_BYTES
+    fit = [g for g in BLOCK_GROUPS5 if 2 * (halo + 25 * g * 256) <= SMEM_MAX]
+    tiles = n * _cdiv(w, tw) * _cdiv(h, th)
+    need = _cdiv(co, 8)
+    for groups in range(_cdiv(need, fit[-1]), need + 1):
+        nb = next(g for g in fit if g >= _cdiv(need, groups))
+        groups = _cdiv(need, nb)
+        if tiles * groups >= SMS:
+            break
+    return ConvPlan(nwg, tw, th, nb, groups, tiles * groups)
+
+
+def _packed_weights5(w: torch.Tensor, dev: torch.device, n_cols: int) -> torch.Tensor:
+    """``pack_weights_sm90(w, n_cols)`` for a (5, 5, C, Co) weight in
+    bfloat16 on the card, cached per weight tensor."""
+    return _PACKED.get(w, ("5x5", dev, n_cols), lambda: pack_weights_sm90(
+        w.detach().to(device=dev, dtype=torch.bfloat16), n_cols))
+
+
+def conv5x5_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool,
+                out_dtype=None) -> torch.Tensor:
+    """Fused SAME conv5x5 + bias + ReLU (``relu``) or identity, through K11
+    (csrc/conv5x5_act.cu) on the card, ``conv5x5_act_plain`` on the CPU.
+
+    Args:
+      x: (N, H, W, C) activation; on the card contiguous bfloat16 with C a
+        multiple of 8 (keep activations padded with zero channels).
+      w: (5, 5, C, Co) weights, used in bfloat16 and packed once per tensor;
+        b: (Co,) bias.
+      out_dtype: output dtype (default x's), bfloat16 or float32.
+    Returns (N, H, W, Co).
+    """
+    if x.device.type == "cpu":
+        return conv5x5_act_plain(x, w, b, relu, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"no conv kernel for device {x.device}")
+    if (x.dtype != torch.bfloat16 or x.dim() != 4 or not x.is_contiguous()
+            or x.shape[-1] % 8):
+        raise ValueError("K11 takes a contiguous (N, H, W, C) bfloat16 tensor with C a "
+                         f"multiple of 8, got {x.dtype} {tuple(x.shape)}")
+    n, h, wd, c = x.shape
+    if w.dim() != 4 or tuple(w.shape[:3]) != (5, 5, c):
+        raise ValueError(f"weights {tuple(w.shape)} do not match {c} channels")
+    co = w.shape[-1]
+    dev = x.device
+    plan = conv5_plan(n, h, wd, co)
+    wk = _packed_weights5(w, dev, plan.n_cols)
+    if x.data_ptr() % 16:                # the kernel's copies start on 16-byte boundaries
+        x = x.clone()
+    bias = _vec(b, co, dev)
+    odt = _out_dtype(x, out_dtype)
+    if odt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype {odt} not supported by K11")
+    out = torch.empty((n, h, wd, co), dtype=odt, device=dev)
+    with torch.cuda.device(dev):
+        rc = KERNEL5.lib().aptd_conv5x5_act(
+            x.data_ptr(), wk.data_ptr(), bias.data_ptr(), out.data_ptr(), n, h, wd, c, co,
+            0.0 if relu else 1.0, int(odt == torch.float32), plan.tw, plan.nwg, plan.nb,
+            plan.groups * plan.nb, torch.cuda.current_stream().cuda_stream)
+    check(rc, f"conv5x5_act kernel ({c} -> {co} channels)")
+    KERNEL5.launches += 1
+    return out

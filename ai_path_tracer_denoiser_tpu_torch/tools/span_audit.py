@@ -3,7 +3,9 @@ synchronising calls, and the cost of a span with tracing off and on.
 
 For one 800x800 statue frame (the plain wavefront and the binned mesh
 kernels), one 800x800 cornell frame (the megakernel) followed by one
-denoised frame at the reference widths, and one train step (batch 4,
+denoised frame at the reference widths, one cornell frame denoised by the
+kernel-predicting network (its counters per frame and its convs' and
+apply's ms too), and one train step (batch 4,
 7-frame windows, 256x256 crops, bfloat16), each after a warm-up call:
 ``torch.cuda.set_sync_debug_mode("warn")`` lists every call that made the
 host wait for the card, and the program's ``sync.*`` counters
@@ -171,6 +173,35 @@ def audit_orbit(emit, device="cuda", res=800, steps=range(0, 360, 12)):
           math.degrees(0.01), "frames": out})
 
 
+def audit_kpcn(emit, device="cuda", res=800, iters=20):
+    """One 800x800 cornell frame denoised by the kernel-predicting network
+    at its published widths: host reads (warnings and counted), its
+    counters per frame (``kpcn.conv.*``: 9 convs, ``kpcn.apply.*``: 1
+    apply, each on the kernel or the plain side) and the events ms of its
+    nine convs (K11), its apply (K12) and the whole denoise, median of
+    ``iters`` calls back to back."""
+    from ..config import KPCNOptions
+    from ..models import apply_kpcn_frame, init_kpcn, kernel_apply, kpcn_logits
+    opts = KPCNOptions()
+    params = init_kpcn(0, opts, device)
+    scene = frame_scene("cornell_box.txt", device, res)
+    gbuf = render_gbuffer_frame(scene, RenderOptions(rng="parity", backend="auto"))[1]
+    apply_kpcn_frame(params, gbuf, opts)                        # builds, warms
+    where, counted = audited(lambda: apply_kpcn_frame(params, gbuf, opts), "denoise.frame",
+                             device)
+    counts = {k: v for k, v in timers.records("denoise.frame")[-1]["counts"].items()
+              if k.startswith("kpcn.")}
+    logits = kpcn_logits(params, gbuf, opts)
+    times = {"frame_ms": lambda: apply_kpcn_frame(params, gbuf, opts),
+             "convs_ms": lambda: kpcn_logits(params, gbuf, opts),
+             "apply_ms": lambda: kernel_apply(logits, gbuf[None, 0:3], opts.kernel)}
+    emit({"phase": "kpcn_frame", "scene": "cornell_box.txt", "res": res,
+          "warnings": in_port(where), "counted": sum(counted.values()),
+          "warnings_at": dict(where), "counts": counts,
+          **{k: timers.time_call(fn, warmup=2, iters=iters, device=device)
+             for k, fn in times.items()}})
+
+
 def audit_train(emit, device="cuda", crop=CROP, widths=WIDTHS):
     topt = TrainOptions(bf16_compute=True, batch_size=BATCH, sequence_length=SEQ,
                         crop_size=crop)
@@ -253,6 +284,7 @@ def main(argv=None):
     timers.reset()
     audit_frames(emit)
     audit_orbit(emit)
+    audit_kpcn(emit)
     audit_train(emit)
     measure_cost(emit, args.spans_off, args.spans_on)
 

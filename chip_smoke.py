@@ -3,12 +3,18 @@
 
     python3 chip_smoke.py
 
-Builds the port's eleven CUDA kernels from csrc/, holds each against its
-plain PyTorch version on the card, and drives the main paths through the
+Builds the port's eleven CUDA kernels from csrc/ (and the kernel-predicting
+denoiser's two, K11 and K12, at first use), holds each against its plain
+PyTorch version on the card, and drives the main paths through the
 CLI's entry point.  The wavefront's geom kernel K10 is held bit for bit
 to its plain version on every analytic-geom query of an 800x800 statue
 frame and timed there, with the frame itself through K10 and through the
-plain version in turns.  The render megakernel is also held bit for bit to its
+plain version in turns.  K11 and K12 are held to their plain versions on
+an 800x800 cornell frame denoised by KPCN at its published widths, and
+timed there beside their bounds and cuDNN's conv at the same shapes;
+then ``interactive --denoiser kpcn`` renders and denoises four such frames
+through the CLI, with K1, K11 and K12's launches counted (1, 9 and 1 a
+frame).  The render megakernel is also held bit for bit to its
 one-pixel-per-thread witness build (the first version's schedule and
 arithmetic) on six inputs, and timed as events around its wrapper's calls
 and as device time of the launch alone, on the interactive frame and on a
@@ -120,6 +126,7 @@ FRAMES = 8
 TRAIN_RES, TRAIN_FRAMES, TRAIN_GT_SPP = 512, 14, 64
 TRAIN_BATCH, TRAIN_CROP, TRAIN_SEQ = 4, 256, 7
 MODEL_FRAMES = 2              # interactive frames per conv impl, trained model
+KPCN_FRAMES = 4               # interactive --denoiser kpcn frames at 800x800
 # Published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s, dense
 # bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor cores.
 HBM_BPS = 3.35e12
@@ -446,6 +453,147 @@ def phase_geom_kernel(smi, dev):
             "per_call_device_ms": device, "plain_ms": frame_plain,
             "plain_per_call_ms": plain_ms, "bound_ms": frame_bound, "bound_by": by,
             "per_call_bound_ms": bound, "library_ms": None}
+
+
+def phase_kpcn_kernels(smi, dev, reps=20):
+    """K11 (csrc/conv5x5_act.cu) and K12 (csrc/kernel_apply.cu) on an 800x800
+    cornell frame denoised by the kernel-predicting network at its published
+    widths (weights from seed 0): each of the nine convs' calls against the
+    plain version on the card (one bfloat16 step apart, values near zero
+    within 1e-4 of the layer's largest), the apply against its plain
+    version (1e-5); launches per frame; events and device ms (CUDA graph
+    replay) of the nine convs and of the apply, beside their bounds
+    (perfbench/counts_kpcn.py, from the published shapes), the plain
+    versions' ms and, for the convs, ``F.conv2d``'s in bfloat16
+    channels-last at the same shapes (cuDNN; the port never calls it).
+    Returns the two kernels' rows of the ``kernels`` summary."""
+    import dataclasses
+    import torch
+    import torch.nn.functional as F
+    from ai_path_tracer_denoiser_tpu_torch.config import KPCNOptions, RenderOptions
+    from ai_path_tracer_denoiser_tpu_torch.models import conv_kernel, kpcn
+    from ai_path_tracer_denoiser_tpu_torch.render import render_gbuffer_frame
+    from ai_path_tracer_denoiser_tpu_torch.scene import derive_camera, load_scene
+    from perfbench import counts_kpcn
+    opts = KPCNOptions()
+    sc = load_scene(SCENE, device=dev)
+    c = sc.camera
+    sc = dataclasses.replace(sc, camera=derive_camera(
+        (800, 800), float(c.fov[1]), c.position.numpy(), c.look_at.numpy(), c.up.numpy()))
+    gbuf = render_gbuffer_frame(sc, RenderOptions())[1]
+    params = kpcn.init_kpcn(0, opts, dev)
+    kpcn.apply_kpcn_frame(params, gbuf, opts)                   # builds, warms
+    torch.cuda.synchronize()
+    calls = []
+    launches = (conv_kernel.KERNEL5.launches, kpcn.APPLY_KERNEL.launches)
+    with recording(kpcn, "conv5x5_act", calls):
+        y, logits = kpcn.apply_kpcn_frame(params, gbuf, opts, return_logits=True)
+    torch.cuda.synchronize()
+    per_frame = (conv_kernel.KERNEL5.launches - launches[0],
+                 kpcn.APPLY_KERNEL.launches - launches[1])
+    require(per_frame == (9, 1) and len(calls) == 9, "K11 9 and K12 1 launch a frame")
+    conv_err = []
+    for i, (x, w, b, relu) in enumerate(calls, 1):
+        got = conv_kernel.conv5x5_act(x, w, b, relu).float()
+        want = conv_kernel.conv5x5_act_plain(x, w, b, relu).float()
+        tol = 2.0 ** -7 * want.abs() + 1e-4 * float(want.abs().max())
+        bad = int(((got - want).abs() > tol).sum())
+        conv_err.append({"layer": i, "shape": list(x.shape) + [w.shape[-1]],
+                         "max_abs_err": float((got - want).abs().max()),
+                         "out_max": float(want.abs().max()), "outside_tol": bad})
+        require(bad == 0, f"K11 layer {i} within one bfloat16 step of its plain version")
+    rad = gbuf[None, 0:3]
+    got = kpcn.kernel_apply(logits, rad, opts.kernel)
+    want = kpcn.kernel_apply_plain(logits, rad, opts.kernel)
+    apply_err = float((got - want).abs().max())
+    require(bool(((got - want).abs() <= 1e-5 * want.abs() + 4e-6).all()),
+            "K12 within 1e-5 of its plain version")
+    emit({"phase": "kpcn_check", "res": [800, 800], "convs": conv_err,
+          "apply_max_abs_err": apply_err, "launches_per_frame": list(per_frame),
+          "frame_finite": bool(torch.isfinite(y).all())})
+
+    def convs(fn):
+        return lambda: [fn(*a) for a in calls]
+
+    def library():
+        xs = [a[0].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+              for a in calls]
+        ws = [a[1].to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last) for a in calls]
+        bs = [a[2].to(torch.bfloat16) for a in calls]
+        return lambda: [F.conv2d(x, w, b, padding=2) for x, w, b in zip(xs, ws, bs)]
+    apply = lambda: kpcn.kernel_apply(logits, rad, opts.kernel)           # noqa: E731
+    m = {"in_channels": 30, "width": 100, "layers": 9, "kernel": 21}
+    conv_bound = counts_kpcn.conv_bound_s(counts_kpcn.kpcn_convs(800, 800, m)) * 1e3
+    apply_bound = counts_kpcn.apply_bound_s(800, 800, 21) * 1e3
+    t = {"conv_ms": time_ms(convs(conv_kernel.conv5x5_act), reps),
+         "conv_device_ms": graph_ms(convs(conv_kernel.conv5x5_act), reps),
+         "conv_plain_ms": time_ms(convs(conv_kernel.conv5x5_act_plain), 2, warmup=1),
+         "conv_library_ms": time_ms(library(), reps),
+         "apply_ms": time_ms(apply, reps), "apply_device_ms": graph_ms(apply, reps),
+         "apply_plain_ms": time_ms(lambda: kpcn.kernel_apply_plain(logits, rad, opts.kernel),
+                                   2, warmup=1),
+         "frame_ms": time_ms(lambda: kpcn.apply_kpcn_frame(params, gbuf, opts), reps)}
+    per_layer = [time_ms(lambda a=a: conv_kernel.conv5x5_act(*a), reps) for a in calls]
+    emit({"phase": "kpcn_timing", "card": smi, **t, "conv_bound_ms": conv_bound,
+          "apply_bound_ms": apply_bound, "conv_roofline_pct": 100 * conv_bound
+          / t["conv_device_ms"], "apply_roofline_pct": 100 * apply_bound / t["apply_device_ms"],
+          "conv_layer_ms": per_layer,
+          "plans": [conv_kernel.conv5_plan(*a[0].shape[:3], a[1].shape[-1])._asdict()
+                    for a in calls[::8]]})
+    return [{"name": "conv5x5_act", "route": "cuda",
+             "source": "ai_path_tracer_denoiser_tpu_torch/csrc/conv5x5_act.cu",
+             "replaces": None, "launches": per_frame[0],
+             "max_abs_err": max(e["max_abs_err"] for e in conv_err), "ms": t["conv_ms"],
+             "device_ms": t["conv_device_ms"], "plain_ms": t["conv_plain_ms"],
+             "bound_ms": conv_bound, "bound_by": "operations",
+             "library_ms": t["conv_library_ms"]},
+            {"name": "kernel_apply", "route": "cuda",
+             "source": "ai_path_tracer_denoiser_tpu_torch/csrc/kernel_apply.cu",
+             "replaces": None, "launches": per_frame[1], "max_abs_err": apply_err,
+             "ms": t["apply_ms"], "device_ms": t["apply_device_ms"],
+             "plain_ms": t["apply_plain_ms"], "bound_ms": apply_bound, "bound_by": "bytes",
+             "library_ms": None}]
+
+
+def phase_kpcn_path(cli, kernels, smi, dev):
+    """``interactive --denoiser kpcn`` on cornell at 800x800 through
+    ``cli.main``, with every launch count and the program's counters
+    zeroed just before: K1 once, K11 nine times and K12 once a frame and
+    no other kernel, the convs and the apply counted on the kernel side
+    alone, no counted host read in a frame's denoise, finite frames whose
+    PNGs decode."""
+    from ai_path_tracer_denoiser_tpu_torch.models import conv_kernel, kpcn
+    from ai_path_tracer_denoiser_tpu_torch.utils import timers
+    from ai_path_tracer_denoiser_tpu_torch.utils.imageio import read_png
+    every = tuple(kernels) + (conv_kernel.KERNEL5, kpcn.APPLY_KERNEL)
+    for k in every:
+        k.launches = 0
+    timers.reset()
+    records = cli.main(["interactive", SCENE, "--denoiser", "kpcn",
+                        "--frames", str(KPCN_FRAMES),
+                        "--out-dir", os.path.join(OUT_DIR, "kpcn_frames")])
+    launches = {k.name: k.launches for k in every}
+    want = {**{k.name: 0 for k in every}, "render_megakernel": KPCN_FRAMES,
+            "conv5x5_act": 9 * KPCN_FRAMES, "kernel_apply": KPCN_FRAMES}
+    require(launches == want, f"K1 1, K11 9 and K12 1 launch a frame, no other: {launches}")
+    kpcn_counts = {k: v for k, v in timers.totals().items() if k.startswith("kpcn.")}
+    require(kpcn_counts == {"kpcn.conv.kernel": 9 * KPCN_FRAMES,
+                            "kpcn.apply.kernel": KPCN_FRAMES},
+            f"kpcn counters on the kernel side alone: {kpcn_counts}")
+    denoise_reads = [sum(v for k, v in r["counts"].items() if k.startswith("sync."))
+                     for r in timers.records("denoise.frame")]
+    require(len(denoise_reads) == KPCN_FRAMES and not any(denoise_reads),
+            f"no host read in a frame's denoise: {denoise_reads}")
+    for rec in records:
+        require(rec["finite"], f"kpcn frame {rec['frame']} finite")
+        img = read_png(rec["path"])
+        require(img.shape == (800, 800, 3) and img.std() > 0, "kpcn frame PNG decodes")
+    emit({"phase": "kpcn_path", "scene": "cornell_box", "res": [800, 800],
+          "frames": KPCN_FRAMES, "launches": launches, "counters": kpcn_counts,
+          "denoise_host_reads": denoise_reads, "card": smi,
+          "per_frame_ms": [{k: round(v, 3) for k, v in rec.items() if k.endswith("_ms")}
+                           for rec in records]})
 
 
 def phase_serve_path(cli, kernels, smi, dev):
@@ -2437,6 +2585,11 @@ def main():
     # ---- 6b. the wavefront's geom kernel K10 on a statue frame's queries ----
     geom_row = phase_geom_kernel(smi, dev)
 
+    # ---- 6c. the kernel-predicting denoiser's K11 and K12 on a cornell frame,
+    # then `interactive --denoiser kpcn` through the command line ----
+    kpcn_rows = phase_kpcn_kernels(smi, dev)
+    phase_kpcn_path(cli, kernels, smi, dev)
+
     # ---- 7. mesh kernels vs their plain versions, on a real frame's rays ----
     # One 800x800 frame of each mesh scene is rendered with each BVH
     # intersection while the kernels' wrappers record their arguments; the
@@ -3289,10 +3442,10 @@ def main():
          "max_abs_err_3xtf32": mma["3xtf32"]["max_abs_err"],
          "splits_3xtf32": probe_splits["3xtf32"]},
     ]}
-    summary["kernels"].append(geom_row)
-    require(len(summary["kernels"]) == 11, "eleven kernels in the summary")
+    summary["kernels"] += [geom_row, *kpcn_rows]
+    require(len(summary["kernels"]) == 13, "thirteen kernels in the summary")
     for row in summary["kernels"]:
-        row["parallel_path_launches"] = par_launches[row["name"]]
+        row["parallel_path_launches"] = par_launches.get(row["name"], 0)
         row["campaign_path_launches"] = campaign_launches.get(row["name"], 0)
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
         json.dump({"card": smi, **summary, "conv_per_shape": per_shape}, f, indent=1)
