@@ -1,8 +1,9 @@
 // Bulk copies from global into shared memory on Hopper's copy engine
 // (cp.async.bulk, sm_90), completing on an mbarrier in shared memory: one
 // thread starts a copy, every thread that reads the data waits on the
-// barrier.  Used by mesh_binned_pair.cu (each bin's packed faces) and
-// mesh_binned_phase1.cu (the bin bounds).
+// barrier.  Used by mesh_binned_pair.cu (each bin's packed faces),
+// mesh_binned_phase1.cu (the bin bounds) and conv5x5_act.cu (its rings of
+// weights and halos, whose barriers also count threads' arrivals).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,6 +21,19 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// A barrier whose phase completes on `count` arrivals and the bytes they
+// announced.
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// One arrival, announcing no bytes.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
 // Start copying `bytes` (a multiple of 16; both addresses 16-byte aligned)

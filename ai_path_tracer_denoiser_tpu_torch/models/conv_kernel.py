@@ -553,12 +553,24 @@ def _declare5(lib: ctypes.CDLL) -> None:
 
 
 KERNEL5 = CudaKernel("conv5x5_act", "conv5x5_act.cu", declare=_declare5,
-                     headers=("conv_sm90.cuh",))
-# Output-channel groups of 8 that the 5x5 kernel is built for, and its
-# shared memory: two stages of a halo (TH + 4) x (TW + 4) pixels at 48 bytes
-# and a chunk's 25 x 16 x 8 NB weights must fit in 227 KB
-BLOCK_GROUPS5 = (1, 2, 4, 8, 13, 14, 16)
+                     headers=("conv_sm90.cuh", "bulk_copy.cuh"))
+# Output-channel groups of 8 that the 5x5 kernel is built for; its pixel
+# tile (width, height): 256 pixels, two consumer warpgroups of two 64-pixel
+# products, a tile row one 8-pixel core matrix; its two rings, of chunk
+# halos ((TW + 4) x (TH + 4) pixels in two planes of 16 bytes a pixel) and
+# of tap rows' weights (5 x 16 x 8 NB), with a full and an empty barrier of
+# 8 bytes per stage, must fit in 227 KB
+BLOCK_GROUPS5 = (1, 2, 4, 8, 13)
+TILE5 = (8, 32)
+HALO_STAGES5, W_STAGES5 = 3, 10
 SMEM_MAX = 232448
+
+
+def conv5_smem_bytes(nb: int) -> int:
+    """K11's shared memory for ``nb`` channel groups a block."""
+    tw, th = TILE5
+    return (HALO_STAGES5 * (2 * (tw + 4) * (th + 4) * 16 + 16)
+            + W_STAGES5 * (5 * nb * 256 + 16))
 
 
 def conv5x5_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -583,25 +595,24 @@ def conv5x5_act_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 @functools.lru_cache(maxsize=256)
 def conv5_plan(n: int, h: int, w: int, co: int) -> ConvPlan:
-    """The launch of K11 for an (n, h, w, .) -> co call, by
-    ``conv_plan``'s rules with the 5x5 halo: two-warpgroup blocks of 128
-    pixels on images of 132 x 128 pixels or more, else 64; the tile shape
-    with the fewest tiles, then the smallest halo; each block as many
-    channel groups as fit its two stages (at most 16), dealt out to more
-    blocks where the tiles alone leave fewer than ``SMS``."""
-    nwg = 2 if h * w >= SMS * 128 else 1
-    tw, th = min(TILE_SHAPES[nwg], key=lambda t: (_cdiv(w, t[0]) * _cdiv(h, t[1]),
-                                                 (t[0] + 4) * (t[1] + 4)))
-    halo = (tw + 4) * (th + 4) * PIX_BYTES
-    fit = [g for g in BLOCK_GROUPS5 if 2 * (halo + 25 * g * 256) <= SMEM_MAX]
+    """The launch of K11 for an (n, h, w, .) -> co call: 8 x 32 pixel
+    tiles, and of the channel blocks the kernel takes (``nb`` groups of 8
+    each, ceil(co / 8 / nb) blocks a tile) the one that leaves the card
+    least short of ``SMS`` items, then computes the fewest padded channels,
+    then is a multiple of 64 channels (an m64n64 product runs nearer the
+    tensor cores' rate than an m64n104 one), then has the fewest
+    blocks a tile.  ``blocks`` counts the (tile, channel block) items, which
+    the kernel's persistent blocks, one an SM, walk."""
+    tw, th = TILE5
     tiles = n * _cdiv(w, tw) * _cdiv(h, th)
     need = _cdiv(co, 8)
-    for groups in range(_cdiv(need, fit[-1]), need + 1):
-        nb = next(g for g in fit if g >= _cdiv(need, groups))
+
+    def cost(nb):
         groups = _cdiv(need, nb)
-        if tiles * groups >= SMS:
-            break
-    return ConvPlan(nwg, tw, th, nb, groups, tiles * groups)
+        return max(0, SMS - tiles * groups), groups * nb, nb % 8 != 0, groups
+    nb = min(BLOCK_GROUPS5, key=cost)
+    groups = _cdiv(need, nb)
+    return ConvPlan(2, tw, th, nb, groups, tiles * groups)
 
 
 def _packed_weights5(w: torch.Tensor, dev: torch.device, n_cols: int) -> torch.Tensor:
@@ -649,7 +660,7 @@ def conv5x5_act(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool,
     with torch.cuda.device(dev):
         rc = KERNEL5.lib().aptd_conv5x5_act(
             x.data_ptr(), wk.data_ptr(), bias.data_ptr(), out.data_ptr(), n, h, wd, c, co,
-            0.0 if relu else 1.0, int(odt == torch.float32), plan.tw, plan.nwg, plan.nb,
+            0.0 if relu else 1.0, int(odt == torch.float32), plan.tw, plan.th, plan.nb,
             plan.groups * plan.nb, torch.cuda.current_stream().cuda_stream)
     check(rc, f"conv5x5_act kernel ({c} -> {co} channels)")
     KERNEL5.launches += 1

@@ -465,7 +465,9 @@ def phase_kpcn_kernels(smi, dev, reps=20):
     replay) of the nine convs and of the apply, beside their bounds
     (perfbench/counts_kpcn.py, from the published shapes), the plain
     versions' ms and, for the convs, ``F.conv2d``'s in bfloat16
-    channels-last at the same shapes (cuDNN; the port never calls it).
+    channels-last at the same shapes (cuDNN; the port never calls it);
+    then each conv alone: events, device ms, its bound and share of it,
+    and ``F.conv2d``'s ms.
     Returns the two kernels' rows of the ``kernels`` summary."""
     import dataclasses
     import torch
@@ -515,12 +517,12 @@ def phase_kpcn_kernels(smi, dev, reps=20):
     def convs(fn):
         return lambda: [fn(*a) for a in calls]
 
-    def library():
+    def library(layers=calls):
         xs = [a[0].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
-              for a in calls]
+              for a in layers]
         ws = [a[1].to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(
-            memory_format=torch.channels_last) for a in calls]
-        bs = [a[2].to(torch.bfloat16) for a in calls]
+            memory_format=torch.channels_last) for a in layers]
+        bs = [a[2].to(torch.bfloat16) for a in layers]
         return lambda: [F.conv2d(x, w, b, padding=2) for x, w, b in zip(xs, ws, bs)]
     apply = lambda: kpcn.kernel_apply(logits, rad, opts.kernel)           # noqa: E731
     m = {"in_channels": 30, "width": 100, "layers": 9, "kernel": 21}
@@ -534,11 +536,20 @@ def phase_kpcn_kernels(smi, dev, reps=20):
          "apply_plain_ms": time_ms(lambda: kpcn.kernel_apply_plain(logits, rad, opts.kernel),
                                    2, warmup=1),
          "frame_ms": time_ms(lambda: kpcn.apply_kpcn_frame(params, gbuf, opts), reps)}
+    # each layer alone: events, device time (graph replay), its own bound
+    # from the published shapes, and cuDNN's conv at the same shape
     per_layer = [time_ms(lambda a=a: conv_kernel.conv5x5_act(*a), reps) for a in calls]
+    layer_device = [graph_ms(lambda a=a: conv_kernel.conv5x5_act(*a), reps) for a in calls]
+    layer_bound = [counts_kpcn.conv_bound_s([c]) * 1e3
+                   for c in counts_kpcn.kpcn_convs(800, 800, m)]
+    layer_library = [time_ms(library([a]), reps) for a in calls]
     emit({"phase": "kpcn_timing", "card": smi, **t, "conv_bound_ms": conv_bound,
           "apply_bound_ms": apply_bound, "conv_roofline_pct": 100 * conv_bound
           / t["conv_device_ms"], "apply_roofline_pct": 100 * apply_bound / t["apply_device_ms"],
-          "conv_layer_ms": per_layer,
+          "conv_layer_ms": per_layer, "conv_layer_device_ms": layer_device,
+          "conv_layer_bound_ms": layer_bound,
+          "conv_layer_roofline_pct": [100 * b / d for b, d in zip(layer_bound, layer_device)],
+          "conv_layer_library_ms": layer_library,
           "plans": [conv_kernel.conv5_plan(*a[0].shape[:3], a[1].shape[-1])._asdict()
                     for a in calls[::8]]})
     return [{"name": "conv5x5_act", "route": "cuda",
@@ -547,7 +558,7 @@ def phase_kpcn_kernels(smi, dev, reps=20):
              "max_abs_err": max(e["max_abs_err"] for e in conv_err), "ms": t["conv_ms"],
              "device_ms": t["conv_device_ms"], "plain_ms": t["conv_plain_ms"],
              "bound_ms": conv_bound, "bound_by": "operations",
-             "library_ms": t["conv_library_ms"]},
+             "library_ms": t["conv_library_ms"], "layer_device_ms": layer_device},
             {"name": "kernel_apply", "route": "cuda",
              "source": "ai_path_tracer_denoiser_tpu_torch/csrc/kernel_apply.cu",
              "replaces": None, "launches": per_frame[1], "max_abs_err": apply_err,

@@ -185,11 +185,44 @@ def test_k11_packing_and_plan():
     assert not wp[1, :, :, :, :, 4:].any() and not wp[:, :, 2, :, 5:].any()
     for co in (104, 448):
         plan = ck.conv5_plan(1, 800, 800, co)
-        halo = (plan.tw + 4) * (plan.th + 4) * ck.PIX_BYTES
         assert plan.blocks >= ck.SMS and plan.n_cols >= co and plan.nb in ck.BLOCK_GROUPS5
-        assert 2 * (halo + 25 * plan.nb * 256) <= ck.SMEM_MAX
-    assert ck.conv5_plan(1, 800, 800, 104)[3:5] == (13, 1)
-    assert ck.conv5_plan(1, 800, 800, 448)[3:5] == (14, 4)
+        assert ck.conv5_smem_bytes(plan.nb) <= ck.SMEM_MAX
+    assert ck.conv5_plan(1, 800, 800, 104)[1:5] == (8, 32, 13, 1)
+    assert ck.conv5_plan(1, 800, 800, 448)[1:5] == (8, 32, 8, 7)
+
+
+# K11's calls: KPCN's at 800x800 and at the CPU tests' frames (published
+# widths: 32 -> 104 -> 448; the small network: 16 wide, 25 logits padded
+# to 32), and the card tests' shapes
+K11_CALLS = [(1, 800, 800, 104), (1, 800, 800, 448), (1, 96, 80, 104), (1, 96, 80, 448),
+             (1, 16, 16, 104), (1, 16, 16, 448), (1, 32, 32, 16), (1, 32, 32, 32),
+             (1, 64, 64, 104), (1, 64, 64, 448), (1, 200, 168, 104), (2, 37, 23, 13),
+             (1, 805, 797, 104)]
+
+
+@pytest.mark.parametrize("n,h,w,co", K11_CALLS)
+def test_k11_plan_fits_covers_and_fills(n, h, w, co):
+    """Each plan's two stages fit in shared memory, its channel blocks
+    cover every group of 8 output channels, and it gives the card ``SMS``
+    items where the tiles and groups allow."""
+    plan = ck.conv5_plan(n, h, w, co)
+    tiles = n * -(-h // plan.th) * -(-w // plan.tw)
+    need = -(-co // 8)
+    assert plan.tw * plan.th == 256 and plan.nb in ck.BLOCK_GROUPS5
+    assert ck.conv5_smem_bytes(plan.nb) <= ck.SMEM_MAX
+    assert plan.n_cols >= co and (plan.groups - 1) * plan.nb < need
+    assert plan.blocks == tiles * plan.groups >= min(ck.SMS, tiles * need)
+
+
+@pytest.mark.parametrize("shape,plan", [
+    ((1, 800, 800, 32), (2, 16, 8, 4, 1, 5000)), ((1, 800, 800, 101), (2, 16, 8, 13, 1, 5000)),
+    ((1, 400, 400, 43), (2, 16, 8, 6, 1, 1250)), ((4, 256, 256, 57), (2, 16, 8, 8, 1, 2048)),
+    ((1, 100, 100, 76), (1, 8, 8, 10, 1, 169)), ((1, 50, 50, 101), (1, 8, 8, 5, 3, 147)),
+    ((1, 64, 64, 8), (1, 8, 8, 1, 1, 64)), ((2, 37, 23, 13), (1, 8, 8, 1, 2, 60))])
+def test_k2_plan_is_its_own(shape, plan):
+    """K2's plan (``conv_plan``) does not follow K11's: the RDAE's shapes
+    keep their tiles and channel blocks."""
+    assert tuple(ck.conv_plan(*shape)) == plan
 
 
 def test_wrappers_count_the_plain_side_on_the_cpu():
@@ -232,7 +265,8 @@ def test_interactive_cli_denoises_with_kpcn(tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,h,w,c,co,relu", [
     (1, 64, 64, 32, 104, True), (1, 64, 64, 104, 448, False), (1, 200, 168, 104, 104, True),
-    (2, 37, 23, 8, 13, True), (1, 800, 800, 104, 104, True)])
+    (2, 37, 23, 8, 13, True), (1, 800, 800, 104, 104, True), (1, 800, 800, 32, 104, True),
+    (1, 800, 800, 104, 448, False), (1, 805, 797, 104, 104, True)])
 def test_k11_equals_its_plain_version_on_card(cuda_device, n, h, w, c, co, relu):
     """K11 and the plain version sum the same float32 products in another
     order, then round once to bfloat16: one bfloat16 step apart at most,
